@@ -1,8 +1,8 @@
-"""Library-wide while-loop engine scan (CPU trace, no TPU needed).
+"""Library-wide while-loop engine scan (a CPU trace, no accelerator needed).
 
 For every library filter whose source contains a while/do loop, trace it
 once under jit on CPU and report which engine each loop compiled to
-(static unroll / in-VMEM WK engine / masked lax) plus any fold-miss
+(static unroll / loop kernel / masked lax) plus any fold-miss
 builtins — calls whose arguments were all trace-time constants but whose
 name is missing from tracer._CONST_FOLD_OPS (i.e. the spots where the
 constant chain breaks, the candidates for whitelist extension).

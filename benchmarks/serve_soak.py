@@ -23,7 +23,7 @@ This models the reference's in-process lifetime: the GIMP plugin lives
 inside a long-running GIMP process and must not leak per-invocation
 (`mathmap.c` plugin lifecycle [unverified - mount empty]).
 
-Run (CPU):  MMTPU_PLATFORM=cpu python benchmarks/serve_soak.py
+Run (CPU):  JAX_PLATFORMS=cpu python benchmarks/serve_soak.py
 Options:    SOAK_S=600 SOAK_CLIENTS=8 (defaults; SOAK_S=60 for a smoke)
 Exit code 0 + one JSON line on stdout iff all invariants held.
 Recorded results: docs/SERVING.md "Soak" section.
@@ -43,15 +43,7 @@ import urllib.request
 
 import numpy as np
 
-try:  # direct execution; under `python - < file` cwd is the repo
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-except NameError:
-    pass
-
-if os.environ.get("MMTPU_PLATFORM") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def rss_kb() -> int:

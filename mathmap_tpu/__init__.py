@@ -1,4 +1,4 @@
-"""mathmap_tpu — a TPU-native image-transform engine with the capabilities of
+"""mathmap_tpu — an image-transform engine on JAX with the capabilities of
 MathMap (firstBusiness/mathmap).
 
 See SURVEY.md for the reference analysis (note its §0 provenance warning) and
@@ -6,7 +6,7 @@ README.md for the architecture. Quick start:
 
     import mathmap_tpu as mm
     f = mm.compile("grayColor(gray(origVal(xy)))")
-    out = f.render(image)            # fused XLA program on TPU
+    out = f.render(image)            # fused XLA program on the GPU
     ref = f.render(image, interpret=True)   # NumPy oracle
 """
 
@@ -18,23 +18,25 @@ import sys as _sys
 # of a bare RecursionError.
 _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 
-# Persistent XLA compilation cache: the analog of the reference's compiled-
-# filter cache surviving across runs (cgen.c caches generated .so files).
-# Especially valuable here — remote TPU compiles take minutes. Opt out with
-# MMTPU_NO_COMPILE_CACHE=1; relocate with MMTPU_COMPILE_CACHE=dir.
-if not _os.environ.get("MMTPU_NO_COMPILE_CACHE"):
-    try:
-        import jax as _jax
 
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.environ.get(
-                "MMTPU_COMPILE_CACHE",
-                _os.path.expanduser("~/.cache/mathmap_tpu/jax"),
-            ),
-        )
-    except Exception:  # pragma: no cover — never block import on cache setup
-        pass
+def compile_cache_dir(environ=_os.environ):
+    """Where this process keeps JAX's persistent compilation cache (the
+    analog of the reference's compiled-filter cache surviving across
+    runs — cgen.c caches generated .so files): None when
+    JAX_COMPILATION_CACHE_DIR is set, since JAX then reads that variable
+    itself; otherwise a fixed directory inside the checkout, so every run
+    from the same checkout finds what earlier runs compiled."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(root, ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
+    import jax as _jax
+
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 from . import ops as _ops  # noqa: F401  — populate the builtin registry
 from .api import Filter, compile_file, compile_source, shared

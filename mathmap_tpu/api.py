@@ -1,4 +1,4 @@
-"""Public Python API: compile MathMap source -> Filter; render on TPU.
+"""Public Python API: compile MathMap source -> Filter; render on the GPU.
 
 The front-end replacement for the reference's GIMP plugin/CLI entry points
 (SURVEY.md §1 layer 10 [unverified — mount empty, SURVEY.md §0]): the same
@@ -54,10 +54,7 @@ def shared(value):
     (H, W, C) image — or (T, H, W, 4) animated stack — with NO job axis,
     that every job samples. This is the param-animation workload (N
     param/t values over one image); without the marker the caller must
-    broadcast the image into an (N, H, W, 4) stack, and each job then
-    repays the ~3 ms/4K padded-sampler-image build inside the job loop.
-    Shared inputs build that pad ONCE, before the loop — the same hoist
-    render_all_frames gets for its t-sweeps."""
+    broadcast the image into an (N, H, W, 4) stack and upload N copies."""
     return Shared(value)
 
 
@@ -204,16 +201,14 @@ class Filter:
         share the render options. This
         is the batched small-render entry: one fenced dispatch covers the
         whole batch, so the per-call dispatch cost amortizes across N
-        frames — the TPU analog of the reference's in-process render loop,
+        frames — the analog of the reference's in-process render loop,
         where issuing a 512² frame costs nothing but the pixels
         (mathmap_cmdline.c option loop [unverified — mount empty]).
 
         Wrap an input in `mathmap_tpu.shared(img)` to pass ONE image (or
         one (T, H, W, 4) animated stack) every job samples — the
-        param-animation workload. Shared inputs build the padded sampler
-        image once, before the job loop (measured +12-18% on 4K ×8
-        batches), output bitwise identical to the broadcast-stacked
-        form."""
+        param-animation workload; the output is bitwise identical to the
+        broadcast-stacked form."""
         options = options or RenderOptions()
         params = params or {}
         def conv(batch):
@@ -277,7 +272,7 @@ class Filter:
                        t: float = 0.0, frame: float = 0.0,
                        params: dict | None = None):
         """Render across a device mesh: frames shard over 'f' (DP), grid
-        rows/cols over 'y'/'x' (parallel/shard.py — the multi-chip analog of
+        rows/cols over 'y'/'x' (parallel/shard.py — the multi-device analog of
         the reference's slice threads). `mesh=None` builds a rows-only mesh
         over all devices. 4-D inputs are ANIMATED (T,H,W,4) drawables
         (replicated per device, frame-indexed by origValXY — same semantics
@@ -287,10 +282,9 @@ class Filter:
 
         options = options or RenderOptions()
         ins = [self._conv_input(a) for a in inputs]
-        # u8 inputs pass through AS u8: they replicate at 4x fewer bytes,
-        # normalize /255 in-trace inside each tile, and keep the sampler's
-        # exact-u8 path engaged (parallel/shard.py tile code — same rules
-        # as the single-chip render.run())
+        # u8 inputs pass through AS u8: they replicate at 4x fewer bytes
+        # and normalize /255 in-trace inside each tile (parallel/shard.py
+        # tile code — same rules as the single-chip render.run())
         width, height = self._resolve_size(ins, width, height)
         if mesh is None:
             mesh = make_mesh()
@@ -320,7 +314,7 @@ class Filter:
                      frame: float = 0.0,
                      params: dict | None = None, check: bool = True):
         """Render with the INPUT(s) row- (and, on a 2-D mesh, column-)
-        sharded across the mesh and halo rows/cols exchanged over ICI
+        sharded across the mesh and halo rows/cols exchanged between devices
         (parallel/halo.py) — for canvases whose inputs exceed per-device HBM
         when replicated. Multi-input filters pass one array per image
         parameter (every input sharded + halo-exchanged identically; all

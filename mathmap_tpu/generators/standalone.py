@@ -2,7 +2,7 @@
 
 Reference: `generators/` (export a filter as a plugin for another host,
 e.g. Blender — SURVEY.md §2.1 code-generators row, marked LOW confidence
-[unverified — mount empty, SURVEY.md §0]). The TPU rebuild exports:
+[unverified — mount empty, SURVEY.md §0]). The rebuild exports:
 
   - `export_python(filter, path)`: a self-contained Python script embedding
     the .mm source and a minimal CLI (requires mathmap_tpu at run time).

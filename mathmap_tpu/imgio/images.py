@@ -2,22 +2,63 @@
 
 Reference: `rwimg/` C codecs returning 8-bit RGBA buffers (SURVEY.md §1
 layer 2 [unverified — mount empty, SURVEY.md §0]). I/O is host-side and not a
-performance target (SURVEY §2.3 item 7); PIL is the codec layer. A native
-C fast-path for pack/unpack lives in native/ (built lazily) for large batch
-animation output.
+performance target (SURVEY §2.3 item 7). PNG (the CLI's and the service's
+format) and PPM/PAM need only numpy and zlib (imgio/png.py, native/);
+Pillow is imported lazily, for GIF, JPEG and the rarer PNG variants only.
+A native C fast-path for pack/unpack lives in native/ (built lazily) for
+large batch animation output.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .png import decode_png, png_size
+
 
 def _pil():
     try:
         from PIL import Image
-    except ImportError as exc:  # pragma: no cover
-        raise RuntimeError("Pillow is required for image file I/O") from exc
+    except ImportError as exc:
+        raise RuntimeError(
+            "Pillow is required for GIF/JPEG and other non-PNG image files "
+            "(PNG, PPM and PAM need no extra package)") from exc
     return Image
+
+
+def _read_bytes(file) -> bytes:
+    if hasattr(file, "read"):
+        return file.read()
+    with open(file, "rb") as f:
+        return f.read()
+
+
+def _decode_png_rgba(data: bytes):
+    """uint8 (H, W, 4) RGBA from PNG bytes, or None when the file is not
+    a PNG this decoder handles (palette, 16-bit, interlaced)."""
+    try:
+        arr = decode_png(data)
+    except ValueError:
+        return None
+    c = arr.shape[2]
+    if c == 4:
+        return arr
+    alpha = (arr[..., 1:2] if c == 2
+             else np.full(arr.shape[:2] + (1,), 255, np.uint8))
+    rgb = arr[..., :1].repeat(3, axis=2) if c in (1, 2) else arr
+    return np.concatenate([rgb, alpha], axis=2)
+
+
+def image_size(path: str) -> tuple:
+    """(width, height) of an image file without decoding its pixels."""
+    with open(path, "rb") as f:
+        head = f.read(32)
+    try:
+        return png_size(head)
+    except ValueError:
+        pass
+    with _pil().open(path) as im:
+        return im.size
 
 
 def to_float_rgba(arr: np.ndarray) -> np.ndarray:
@@ -66,8 +107,13 @@ def read_image(path: str) -> np.ndarray:
             # Pillow has no PAM codec — pure-Python reader mirrors the
             # pure-Python writer fallback in write_image
             return to_float_rgba(_read_pam_py(path))
-    img = _pil().open(path).convert("RGBA")
-    return to_float_rgba(np.asarray(img))
+    data = _read_bytes(path)
+    rgba = _decode_png_rgba(data)
+    if rgba is None:
+        import io
+
+        rgba = np.asarray(_pil().open(io.BytesIO(data)).convert("RGBA"))
+    return to_float_rgba(rgba)
 
 
 def _read_pam_py(path: str) -> np.ndarray:
@@ -106,9 +152,15 @@ def read_animation(file, as_uint8: bool = False) -> np.ndarray:
     frames matching frame 0's geometry — an animation has one geometry.
     as_uint8=True skips the float conversion and returns the decoded
     (T, H, W, 4) uint8 — the render paths normalize u8 in-trace, so a u8
-    stack ships 4× fewer bytes host→device (the serving layer's choice)."""
-    pil = _pil()
-    img = pil.open(file)
+    stack ships 4× fewer bytes host→device (the serving layer's choice).
+    PNG files (always one frame) decode without Pillow."""
+    import io
+
+    data = _read_bytes(file)
+    rgba = _decode_png_rgba(data)
+    if rgba is not None:
+        return (rgba if as_uint8 else to_float_rgba(rgba))[None]
+    img = _pil().open(io.BytesIO(data))
     frames = []
     try:
         i = 0
@@ -167,6 +219,12 @@ def write_image(path: str, arr) -> None:
                         b"TUPLTYPE RGB_ALPHA\nENDHDR\n" % (w, h))
                 f.write(np.ascontiguousarray(data).tobytes())
             return
+    if lower.endswith(".png"):
+        from .png import encode_png
+
+        with open(path, "wb") as f:
+            f.write(encode_png(data))
+        return
     img = _pil().fromarray(data, mode="RGBA")
     if lower.endswith((".jpg", ".jpeg")):
         img = img.convert("RGB")

@@ -6,7 +6,7 @@ int/float/tuple const, variable, internal, userval ref, function call,
 operator (sugar for calls), assignment, sub-assignment (`v[i]=`), sequence
 `;`, if/while/do-while, filter definition with typed arg list.
 
-The TPU rebuild keeps the AST as the sole IR: SSA construction and the
+The rebuild keeps the AST as the sole IR: SSA construction and the
 optimization passes of the reference's `compiler.c` are not rebuilt because
 XLA performs folding/CSE/DCE on the traced program (SURVEY.md §7 design
 decision: whole-grid tracing replaces per-pixel codegen).

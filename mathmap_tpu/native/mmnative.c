@@ -7,7 +7,7 @@
  * Compiled at first use with the system C compiler and dlopen'd via ctypes
  * (mathmap_tpu/native/__init__.py) — the same runtime-compilation strategy
  * the reference uses for its filter code path (cgen.c), applied here to the
- * host-side IO hot loops. The TPU compute path never touches this file.
+ * host-side IO hot loops. The device render path never touches this file.
  */
 
 #include <stdint.h>

@@ -147,7 +147,7 @@ def _to_xy(ev, args, span):
 
 def _lut_take(be, lut, x):
     """take-based linear interpolation into a (N,) or (N, k) LUT, clamped to
-    [0,1] — the oracle semantics (and the XLA fallback on the jax path)."""
+    [0,1] — one formulation for the jit path and the oracle."""
     n = lut.shape[0]
     xf = be.clip(x, 0.0, 1.0) * (n - 1)
     i0 = be.floor(xf)
@@ -159,8 +159,7 @@ def _lut_take(be, lut, x):
         v1 = be.take(lut, i1)
         return [v0 + frac * (v1 - v0)]
     # ONE row-gather per tap (2 total) instead of 2 per channel (8 for a
-    # gradient) — gathers are the TPU bottleneck; same pattern as
-    # value.InputImage.make_gather (review r3)
+    # gradient); same pattern as value.InputImage.make_gather (review r3)
     v0 = be.take(lut, i0, axis=0)
     v1 = be.take(lut, i1, axis=0)
     v = v0 + frac[..., None] * (v1 - v0)
@@ -168,31 +167,10 @@ def _lut_take(be, lut, x):
 
 
 def apply_curve(ev, curve, pos: TupleValue, span) -> TupleValue:
-    from ..runtime.sampling import lut_pallas_ok
-
-    be = ev.be
     x = pos.scalar(span)
-    if lut_pallas_ok(ev, x):
-        from ..pallas_kernels.sample_kernel import apply_lut_pallas
-
-        chans = apply_lut_pallas(
-            ev, curve.lut, x,
-            xla_fallback=lambda: _lut_take(be, curve.lut, x) * 4,
-        )
-        return TupleValue(NIL, (chans[0],))
-    return TupleValue(NIL, (_lut_take(be, curve.lut, x)[0],))
+    return TupleValue(NIL, (_lut_take(ev.be, curve.lut, x)[0],))
 
 
 def apply_gradient(ev, grad, pos: TupleValue, span) -> TupleValue:
-    from ..runtime.sampling import lut_pallas_ok
-
-    be = ev.be
     x = pos.scalar(span)
-    if lut_pallas_ok(ev, x):
-        from ..pallas_kernels.sample_kernel import apply_lut_pallas
-
-        chans = apply_lut_pallas(
-            ev, grad.lut, x, xla_fallback=lambda: _lut_take(be, grad.lut, x)
-        )
-        return TupleValue("rgba", tuple(chans))
-    return TupleValue("rgba", tuple(_lut_take(be, grad.lut, x)))
+    return TupleValue("rgba", tuple(_lut_take(ev.be, grad.lut, x)))

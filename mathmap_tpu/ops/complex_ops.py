@@ -5,8 +5,9 @@ reference) [unverified — mount empty, SURVEY.md §0]; op list per SURVEY.md
 §2.1: mul/div overloads, conj, arg, complex exp/log/sqrt/trig, gamma.
 
 Complex values are ri:[re, im]; arithmetic stays in split real/imag form so
-the whole computation remains elementwise f32 arrays on the VPU (no complex64
-— XLA TPU support for complex is limited and split form fuses better).
+the whole computation remains elementwise f32 arrays (no complex64: split
+form fuses into one elementwise program and lowers inside the Triton loop
+kernel, which has no complex types).
 """
 
 from __future__ import annotations

@@ -37,8 +37,8 @@ def _orig_val_xy(ev, args, span):
     x = ev.grid(args[0].scalar(span))
     y = ev.grid(args[1].scalar(span))
     img = _first_input(ev, span)
-    # scalar frame indices stay scalar (the Pallas path selects the frame
-    # once); per-pixel frame arrays route through the gather path
+    # scalar frame indices stay scalar; per-pixel frame arrays gather
+    # per pixel along the frame axis
     frame = args[2].scalar(span) if len(args) == 3 else None
     return TupleValue("rgba", tuple(img.sample(ev, x, y, frame=frame)))
 

@@ -42,16 +42,6 @@ import numpy as _np
 
 _PERM_NP = _np.asarray(_PERM + _PERM, dtype=_np.int32)
 
-# Two-level one-hot factorization of the 512-entry permutation for the MXU:
-# p[i] == onehot(i >> 4) @ T2 @ onehot(i & 15) with T2 = p.reshape(32, 16).
-# All values (0..255) and the 0/1 one-hots are exact in bfloat16, and each
-# row of the product has exactly one nonzero term, so the contraction is
-# BIT-EXACT vs the integer gather. On TPU this replaces 14 scalar-unit
-# gathers per noise() call (~6 ns/element each => ~0.7 s/frame at 4K,
-# measured: the whole Noise category ran at 2.1 Mpix/s) with two tiny
-# matmul/mul-reduce stages that ride the MXU/VPU.
-_PERM_T2 = _PERM_NP.reshape(32, 16)
-
 
 def _perm_table(be):
     # No cross-call cache: a backend array created inside one jit trace must
@@ -84,27 +74,12 @@ def perlin3(be, x, y, z):
     z = z - zf
     u, v, w = _fade(x), _fade(y), _fade(z)
 
-    if be is _np:
-        p = _perm_table(be)  # gather table: numpy oracle path only
+    # a plain gather from the 512-entry table: 14 lookups per noise()
+    # call (PERF.md, "Noise lookup")
+    p = _perm_table(be)
 
-        def P(i):
-            return be.take(p, i)
-    else:
-        # jax path: XLA's TPU gather is scalar-unit bound (~6 ns/element);
-        # the two-level one-hot contraction is bit-exact (see _PERM_T2) and
-        # keeps the lookup on the vector units. bf16 operands halve the
-        # materialized one-hot traffic; the sum has exactly one nonzero
-        # term so f32 accumulation reproduces the integer gather exactly.
-        t2 = be.asarray(_PERM_T2.astype(_np.float32), dtype=be.bfloat16)
-        k_hi = be.arange(32, dtype=be.int32)
-        k_lo = be.arange(16, dtype=be.int32)
-
-        def P(i):
-            oh_hi = ((i[..., None] >> 4) == k_hi).astype(be.bfloat16)
-            m1 = be.einsum("...k,kl->...l", oh_hi, t2,
-                           preferred_element_type=be.float32)
-            oh_lo = ((i[..., None] & 15) == k_lo).astype(be.float32)
-            return (m1 * oh_lo).sum(-1).astype(be.int32)
+    def P(i):
+        return be.take(p, i)
 
     a = P(xi) + yi
     aa = P(a) + zi

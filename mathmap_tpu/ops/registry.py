@@ -9,7 +9,7 @@ binder (`overload.c`). Each builtin is a Python function
 that performs its own tag/length dispatch (raising MMTypeError on mismatch,
 which is the overload-resolution failure path). `ev` is the evaluator,
 exposing the array backend `ev.be` (numpy for the oracle interpreter,
-jax.numpy for the traced TPU path) so each op definition serves both
+jax.numpy for the traced device path) so each op definition serves both
 backends — the analog of the reference ops table carrying both a C-emission
 template and an interpreter implementation.
 

@@ -4,7 +4,7 @@ Reference: GSL-backed rows of the builtins table [unverified — mount empty,
 SURVEY.md §0]; op list per SURVEY.md §2.1 ("special functions (elliptic
 integrals, jacobi sn/cn/dn, beta — GSL)").
 
-GSL is not available (and would not run on TPU); each function is implemented
+GSL is not available (and would not run on a GPU); each function is implemented
 directly in backend array ops so it vectorizes over the whole grid:
   - gamma: Lanczos approximation (g=7, n=9) with reflection for x < 0.5 —
     also valid for complex arguments in split re/im form.

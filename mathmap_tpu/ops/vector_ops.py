@@ -7,7 +7,7 @@ m2x2/m3x3 ops incl. solve, quaternion/hypercomplex mul.
 Matrices are row-major flat tuples: m2x2:[a,b,c,d] = [[a,b],[c,d]];
 m3x3 has 9 components. These are per-pixel tiny matrices (every component is
 a whole (H,W) grid array), so "matrix multiply" is a handful of fused
-elementwise FMAs on the VPU — not an MXU op.
+elementwise FMAs — not a matrix-unit op.
 """
 
 from __future__ import annotations

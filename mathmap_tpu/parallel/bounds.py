@@ -3,7 +3,7 @@
 The tiled renderer's correctness contract (halo.py) is that every image
 sample stays within `halo` rows/cols of the sampling pixel. The reference
 has no analog (it renders shared-memory, any pixel reachable via the tile
-cache); for the TPU's distributed tiling the bound must come from the
+cache); for distributed tiling over devices the bound must come from the
 filter itself. This module walks the filter AST with affine-interval
 arithmetic — every scalar is tracked as
 
@@ -250,7 +250,7 @@ class BoundWalker:
             v = self.expr(node.expr)
             self.env[node.name] = v
             # image/filter alias tracking (monotone; also follows alias-of-
-            # alias chains through a Var RHS, mirroring render.uses_sampling)
+            # alias chains through a Var RHS)
             rhs = node.expr
             if isinstance(rhs, A.Var):
                 if rhs.name in self.image_params or rhs.name in self.may_image:
@@ -414,9 +414,9 @@ class BoundWalker:
             self.record_sample(self.expr(node.args[0]) if node.args else None)
             return [Aff.const(Iv(0, 1))] * 4
         if name == "origValImage":
-            # origValImage(image, xy) — the same sampling-site list
-            # render.uses_sampling keys on (review r3: was ignored, so
-            # halo='auto' missed its displacement entirely)
+            # origValImage(image, xy) is a sampling site like origVal
+            # (review r3: was ignored, so halo='auto' missed its
+            # displacement entirely)
             if len(node.args) == 2:
                 self.expr(node.args[0])
                 self.record_sample(self.expr(node.args[1]))

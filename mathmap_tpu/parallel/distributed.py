@@ -1,18 +1,21 @@
-"""Multi-host initialization — the distributed-comm backend slot.
+"""Multi-process initialization — the distributed-comm backend slot.
 
 The reference has NO distributed communication (pthread row-slices only,
 SURVEY.md §2.2 comm row [unverified — mount empty, SURVEY.md §0]); this
-module provides the TPU-native equivalent wiring: `jax.distributed` for
-multi-host pods, with collectives riding ICI intra-pod and DCN across pods
-(inserted automatically by XLA from the shardings in parallel/shard.py —
-there are no hand-written NCCL/MPI calls to translate).
+module wires `jax.distributed` for renders that span several processes
+(one per GPU, or several hosts). XLA inserts the collectives from the
+shardings in parallel/shard.py and parallel/halo.py (NCCL between GPUs,
+gloo between CPU processes) — there are no hand-written NCCL/MPI calls.
 
-Single-host (this environment) needs none of this; the mesh helpers use
-local devices. On a pod slice:
+One process driving all the GPUs of a host needs none of this; the mesh
+helpers use local devices. For several processes, every process calls
 
     from mathmap_tpu.parallel import distributed
-    distributed.initialize()            # reads TPU env (coordinator etc.)
+    distributed.initialize("localhost:12355", num_processes=4, process_id=i)
     mesh = mesh.make_mesh(frames=2)     # all global devices
+
+with the coordinator's address, the process count and its own index:
+nothing in the environment tells JAX about the cluster.
 """
 
 from __future__ import annotations
@@ -21,10 +24,8 @@ from __future__ import annotations
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host render fleet.
-
-    With no arguments, JAX auto-detects the TPU pod environment
-    (TPU_WORKER_HOSTNAMES etc.). Idempotent."""
+    """Initialize jax.distributed for a multi-process render fleet.
+    Idempotent."""
     import jax
 
     try:

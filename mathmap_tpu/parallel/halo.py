@@ -4,7 +4,8 @@ Reference has no distributed comm at all (SURVEY.md §2.2) — the structural
 analog of sequence parallelism is large-canvas tiling: when a 4K+ render or
 multi-image composite exceeds HBM with replicated inputs, shard the INPUT
 image rows (and optionally columns) across devices and exchange `halo`
-boundary rows/cols with ring neighbors over ICI via `lax.ppermute`
+boundary rows/cols with ring neighbors via `lax.ppermute` (NCCL between
+GPUs)
 (SURVEY §2.2 SP row, §5 long-context row). Each device then renders its
 output block sampling only within its extended local block.
 
@@ -136,51 +137,6 @@ def render_frame_tiled(mesh, program_filters, fdef, width, height, opts,
         raise MMRuntimeError(f"halo ({halo_x}) larger than tile width ({tile_w})")
     uservals = uservals or {}
 
-    def _paint_edge_halo(ext, axis_idx, n_axis, halo_n, axis, behavior):
-        # `axis` is 0 (rows) / 1 (cols) in FRAME terms; animated
-        # (T, ext_h, ext_w, 4) blocks paint the same frame axes shifted
-        # by their leading frame dimension
-        """A global-edge device's ring-wrapped halo holds the OPPOSITE
-        global edge's rows. The gather path never exposes that content
-        (it edge-maps every tap index GLOBALLY before localizing), but
-        the Pallas path encodes edge behavior as CONTENT — so under edge
-        'color'/'reflect', overwrite the leading halo on device 0 and the
-        trailing halo on device n-1 with what the global edge semantics
-        put at global positions [-halo, 0) / [N, N+halo): the edge color,
-        or the mirror of the device's own boundary rows. ('wrap' keeps
-        the ring content — that IS the wrap semantics.) Invisible to the
-        gather path for in-contract samples: in-range global taps never
-        land there (device 0's local [0, halo) ⇔ global [-halo, 0));
-        contract-VIOLATING clipped taps may read painted rows, which
-        'clamp into the block' never promised content for."""
-        import jax.numpy as jnp
-
-        axis = axis + (ext.ndim - 3)  # frame axis 0/1 -> array axis
-        ext_n = ext.shape[axis]
-        pos_shape = [1] * ext.ndim
-        pos_shape[axis] = ext_n
-        pos = jnp.arange(ext_n).reshape(pos_shape)
-        lead = (axis_idx == 0) & (pos < halo_n)
-        trail = (axis_idx == n_axis - 1) & (pos >= ext_n - halo_n)
-        if behavior == "color":
-            col = jnp.asarray(opts.edge_color, dtype=ext.dtype).reshape(
-                (1,) * (ext.ndim - 1) + (4,))
-            return jnp.where(lead | trail, col, ext)
-        # reflect: global position -k mirrors to k-1, so local halo row i
-        # (in [0, halo)) takes local row 2*halo-1-i; the trailing halo
-        # mirrors across the ext_n - halo boundary. Built with static
-        # flips + elementwise where (an index-based take would be an XLA
-        # row gather of the whole block — ~6 ns/element).
-        sl = jax.lax.slice_in_dim
-        lead_m = jnp.concatenate(
-            [jnp.flip(sl(ext, halo_n, 2 * halo_n, axis=axis), axis=axis),
-             sl(ext, halo_n, ext_n, axis=axis)], axis=axis)
-        trail_m = jnp.concatenate(
-            [sl(ext, 0, ext_n - halo_n, axis=axis),
-             jnp.flip(sl(ext, ext_n - 2 * halo_n, ext_n - halo_n, axis=axis),
-                      axis=axis)], axis=axis)
-        return jnp.where(lead, lead_m, jnp.where(trail, trail_m, ext))
-
     arrays = (tuple(input_array)
               if isinstance(input_array, (list, tuple)) else (input_array,))
     if region is not None and not arrays:
@@ -194,11 +150,9 @@ def render_frame_tiled(mesh, program_filters, fdef, width, height, opts,
         re_w = min(rw, tile_w)
 
     def tile_render(*inp_locals):
-        row_idx = jax.lax.axis_index(ROW_AXIS)
-        row_off = row_idx * tile_h
+        row_off = jax.lax.axis_index(ROW_AXIS) * tile_h
         if nx > 1:
-            col_idx = jax.lax.axis_index(COL_AXIS)
-            col_off = col_idx * tile_w
+            col_off = jax.lax.axis_index(COL_AXIS) * tile_w
         else:
             col_off = 0
         excess = [jnp.float32(-(2 ** 30))]
@@ -218,35 +172,24 @@ def render_frame_tiled(mesh, program_filters, fdef, width, height, opts,
             if k == 0 and region is not None:
                 bg_raw = inp_local
             # u8 blocks ship 4x fewer bytes host->device; float_inputs is
-            # the single source of the in-trace /255 normalization rule.
-            # u8_src keeps the sampler's exact-u8 path engaged on the
-            # tiled ext blocks (painted color halos stay eligible exactly
-            # when the apron 'color' is — same on-u8-grid edge_color rule)
-            u8_src = inp_local.dtype == jnp.uint8
+            # the single source of the in-trace /255 normalization rule
             (inp_local,) = float_inputs(jnp, [inp_local])
             if k == 0 and region is not None:
                 bg_flt = inp_local
-            # animated (T, tile_h, W, 4) blocks exchange/paint their frame
-            # row/col axes (every frame shares the device's row range)
+            # animated (T, tile_h, W, 4) blocks exchange their frame
+            # row/col axes (every frame shares the device's row range).
+            # At the global edges the halo holds ring-wrapped rows; the
+            # gather edge-maps every tap GLOBALLY before localizing, so
+            # in-contract samples never read them under color/reflect.
             ax0 = inp_local.ndim - 3
             ext = exchange_halo(inp_local, halo_y, ROW_AXIS, axis=ax0)
-            # painting applies on 1-device axes too (ny==1 still carries
-            # the interpolation-margin halo, self-wrapped by the ring —
-            # wrong content for color/reflect); lead and trail both match
-            if halo_y and opts.edge_y in ("color", "reflect"):
-                ext = _paint_edge_halo(ext, row_idx, ny, halo_y, 0,
-                                       opts.edge_y)
             if nx > 1:
                 ext = exchange_halo(ext, halo_x, COL_AXIS, axis=ax0 + 1)
-                if halo_x and opts.edge_x in ("color", "reflect"):
-                    ext = _paint_edge_halo(ext, col_idx, nx, halo_x, 1,
-                                           opts.edge_x)
             imgs.append(TiledInput(
-                pixels=ext, name=f"in{k}", u8_src=u8_src,
+                pixels=ext, name=f"in{k}",
                 global_height=height, global_width=width if nx > 1 else 0,
                 row_base=row_off - halo_y,
                 col_base=(col_off - halo_x) if nx > 1 else 0,
-                halo_y=halo_y, halo_x=halo_x if nx > 1 else 0,
                 violation_hook=hook if check else None,
             ))
         if region is None:

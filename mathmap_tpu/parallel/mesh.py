@@ -2,9 +2,11 @@
 
 Reference parallelism: the render engine splits the output image into
 horizontal row slices, one thread each (`mathmap_slice_t`, SURVEY.md §2.2 DP
-row [unverified — mount empty, SURVEY.md §0]). TPU-native equivalent: shard
+row [unverified — mount empty, SURVEY.md §0]). The equivalent here: shard
 the pixel grid (and the animation frame batch) over a `jax.sharding.Mesh`;
-collectives ride ICI. Axis names:
+XLA inserts the collectives (NCCL between GPUs). The mesh shape follows the
+algorithm, not a topology: the cards of one host reach each other at the
+same rate (NVLink, all to all). Axis names:
 
     "f" — frame batch (pure data parallelism over animation frames)
     "y" — grid rows   (the row-slice analog; sequence-parallel shaped)

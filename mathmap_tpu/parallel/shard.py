@@ -5,12 +5,7 @@ sharded-parallel — each device builds its OWN tile's coordinate grids from
 its mesh position and evaluates the same fused program; zero collectives.
 Sampling filters replicate the (small vs HBM) input images per device, so
 arbitrary-displacement origVal gathers stay local; the halo-exchange tiled
-path for HBM-exceeding canvases lives in parallel/halo.py. Known headroom:
-the renderer prepad cache (JitRenderer._prepads, ~3 ms/4K input) is NOT
-threaded through shard_map yet — repeated SINGLE-frame sharded calls of
-sampling filters repay the pad build in-trace (the multi-frame lax.map
-hoists it); thread prepads as replicated shard_map inputs if that path
-becomes hot. Animation frames
+path for HBM-exceeding canvases lives in parallel/halo.py. Animation frames
 shard over the "f" axis (pure DP). Output is materialized sharded
 (P(f, y, x)) and only assembled on host transfer.
 """
@@ -19,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..runtime.render import base_layout_enabled, base_layout_for, render_frame
+from ..runtime.render import float_inputs, render_frame
 from ..runtime.tracer import RenderContext
 from ..runtime.value import InputImage
 from ..utils.errors import MMRuntimeError
@@ -29,27 +24,6 @@ from .mesh import COL_AXIS, FRAME_AXIS, ROW_AXIS, axis_size
 def _check_divisible(total: int, parts: int, what: str):
     if total % parts:
         raise MMRuntimeError(f"{what} ({total}) must be divisible by its mesh axis ({parts})")
-
-
-def _tile_layout_kwargs(program_filters, fdef, opts, tile_h, tile_w,
-                        row_off, col_off):
-    """RenderContext layout kwargs for one device's tile. Base-block layout
-    (the perf path: per-tile tier claims, donated-buffer launches — VERDICT
-    r2 item 3) is gated by the SAME predicate the unsharded JitRenderer
-    uses (render.base_layout_enabled), so the two paths cannot diverge;
-    otherwise the (H, W) grid_shape layout with pixel offsets.
-
-    Unlike the unsharded JitRenderer, coordinate grids are NOT
-    host-precomputed here: a tile's origin comes from lax.axis_index (a
-    traced value), so the grids can only be built inside the trace. In
-    the run_frames lax.map they are loop-invariant and XLA hoists them;
-    only repeated single-frame __call__s repay the ~1 ms/4K-tile build."""
-    if base_layout_enabled(program_filters, fdef, opts):
-        return dict(base_layout=base_layout_for(tile_w, tile_h),
-                    local_height=tile_h, local_width=tile_w,
-                    tile_row0=row_off, tile_col0=col_off)
-    return dict(grid_shape=(tile_h, tile_w),
-                row_offset=row_off, col_offset=col_off)
 
 
 def render_frame_sharded(mesh, program_filters, fdef, width, height, opts,
@@ -69,20 +43,16 @@ def render_frame_sharded(mesh, program_filters, fdef, width, height, opts,
         row_off = jax.lax.axis_index(ROW_AXIS) * tile_h
         col_off = jax.lax.axis_index(COL_AXIS) * tile_w
         # u8 inputs replicate as u8 (4x fewer bytes) and normalize /255
-        # in-trace; u8_src keeps the sampler's exact-u8 path engaged so
-        # sharded output stays consistent with unsharded (render.run())
-        from ..runtime.render import float_inputs
-
+        # in-trace, like the unsharded renderer (render.run())
         fins = float_inputs(jnp, list(ins))
         ctx = RenderContext(
             be=jnp, width=width, height=height, opts=opts,
-            inputs=[InputImage(pixels=fa, name=f"in{i}",
-                               u8_src=ins[i].dtype == jnp.uint8)
+            inputs=[InputImage(pixels=fa, name=f"in{i}")
                     for i, fa in enumerate(fins)],
             filters=program_filters, t=t, frame=frame,
             num_frames=num_frames, is_jax=True,
-            **_tile_layout_kwargs(program_filters, fdef, opts,
-                                  tile_h, tile_w, row_off, col_off),
+            grid_shape=(tile_h, tile_w),
+            row_offset=row_off, col_offset=col_off,
         )
         return render_frame(ctx, fdef, uservals)
 
@@ -163,23 +133,18 @@ class ShardedRenderer:
                     # and XLA's loop-invariant motion declines to hoist
                     # size-inflating ops — every frame repaid a full-image
                     # u8->f32 convert (review r4 finding)
-                    from ..runtime.render import float_inputs
-
                     fins = float_inputs(jnp, list(ins))
 
                     def one(i, t):
                         ctx = RenderContext(
                             be=jnp, width=width, height=height, opts=opts,
-                            inputs=[InputImage(
-                                pixels=fa, name=f"in{k}",
-                                u8_src=ins[k].dtype == jnp.uint8)
+                            inputs=[InputImage(pixels=fa, name=f"in{k}")
                                     for k, fa in enumerate(fins)],
                             filters=program_filters, t=t,
                             frame=(f0 + i).astype(jnp.float32),
                             num_frames=num_frames, is_jax=True,
-                            **_tile_layout_kwargs(program_filters, fdef,
-                                                  opts, tile_h, tile_w,
-                                                  row_off, col_off),
+                            grid_shape=(tile_h, tile_w),
+                            row_offset=row_off, col_offset=col_off,
                         )
                         return render_frame(ctx, fdef, make_uservals())
 
@@ -203,7 +168,7 @@ class ShardedRenderer:
         from ..runtime.render import stage_inputs
 
         # uint8 preserved: 4x smaller replication, /255 in-trace in the
-        # tile code, exact-u8 sampler path — the ONE staging rule
+        # tile code — the ONE staging rule
         ins = stage_inputs(jnp, input_arrays)
         if self.num_frames == 1:
             return self._jitted(ins, jnp.float32(t), jnp.float32(frame))

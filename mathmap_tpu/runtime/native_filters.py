@@ -7,9 +7,11 @@ cache (`native_filter_cache`) so repeated applications inside one render are
 free (SURVEY.md §2.1 native-fast-path row [unverified — mount empty,
 SURVEY.md §0]).
 
-TPU design: separable convolution via two 1-D `lax.conv_general_dilated`
-passes (SURVEY §2.3 item 6) — rides the MXU/VPU instead of a per-pixel
-kernel loop. The cache is keyed on (image identity, params) per invocation.
+Design: separable convolution via two 1-D `lax.conv_general_dilated`
+passes (SURVEY §2.3 item 6) instead of a per-pixel kernel loop, at
+HIGHEST precision — a float32 convolution may otherwise run in TF32 on a
+GPU's tensor cores, about three decimal digits. The cache is keyed on
+(image identity, params) per invocation.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ def gaussian_blur_pixels(be, pixels, stddev: float):
             return jax.lax.conv_general_dilated(
                 x, kern, window_strides=(1, 1), padding=pad,
                 dimension_numbers=("NCHW", "OIHW", "NCHW"),
+                precision=jax.lax.Precision.HIGHEST,
             )
 
         pad_x = [(0, 0), (radius, radius)]
@@ -137,8 +140,7 @@ def native_gaussian_blur(ev, img_value, stddev_value, span):
         ev.ctx._native_cache = cache
     ent = cache.get(key)
     # pin the source array in the entry: id() alone can be REUSED after
-    # the array is freed, returning another image's blur (review r3; same
-    # pattern as JitRenderer._prepad_cache)
+    # the array is freed, returning another image's blur (review r3)
     if ent is None or ent[0] is not base.pixels:
         ent = (base.pixels, InputImage(
             pixels=gaussian_blur_pixels(ev.be, base.pixels, stddev_f),

@@ -4,13 +4,12 @@ Reference: the origVal macros + drawable access — THE hot inner loop for
 distortion filters (SURVEY.md §2.1 origVal row, §3.6 hot-loop ranking)
 [unverified — mount empty, SURVEY.md §0].
 
-TPU design (SURVEY §7): compute the source-coordinate arrays for the whole
+Design (SURVEY §7): compute the source-coordinate arrays for the whole
 grid, apply the edge behavior arithmetically (mod for wrap, mirror for
 reflect, clamp+mask for color), then gather. Gathers are expressed as flat
-`take` on a (H*W,) linearized image so XLA lowers them to efficient dynamic-
-gather; bilinear = 4 gathers + lerp, bicubic = 16 gathers with Catmull-Rom
-weights. A fused Pallas kernel can replace this if XLA gather underperforms
-(SURVEY §2.3 item 3) — see pallas_kernels/sample_kernel.py.
+`take` on a (H*W, 4) linearized image so XLA lowers them to one dynamic
+gather of a contiguous RGBA row per tap; bilinear = 4 gathers + lerp,
+bicubic = 16 gathers with Catmull-Rom weights.
 
 Coordinate convention [unverified — SURVEY marks the reference's exact pixel
 centers LOW]: world origin at the image center, y axis pointing up, pixel
@@ -22,8 +21,7 @@ rematerialize the coordinate computation into separate fusions whose
 fast-math rounding differs by 1 ulp, making floor() disagree between the
 gather-index and the interpolation-weight paths — a full-texel jump on that
 pixel. Interpolation itself is continuous, so the artifact only appears at
-exact boundaries; the Pallas sampling kernel (pallas_kernels/) computes
-indices once and does not exhibit it.
+exact boundaries.
 """
 
 from __future__ import annotations
@@ -82,46 +80,6 @@ def _catmull_rom_weights(be, f):
     return w0, w1, w2, w3
 
 
-def _use_pallas(ev, img) -> bool:
-    """Pallas fast path applies to plain InputImages on the jax backend:
-    'auto' only on real TPU; 'pallas' forces it (interpret mode elsewhere)."""
-    from .value import InputImage, TiledInput
-
-    if not ev.ctx.is_jax:
-        return False
-    if type(img) is TiledInput or not isinstance(img, InputImage):
-        return False
-    # NOTE: mesh-sharded renders (ctx.grid_shape set) are deliberately NOT
-    # excluded: per-device planning works (coords are global values on a
-    # local tile; traced offsets from lax.axis_index reach world_to_pixel
-    # fine), and column tiles narrower than one kernel tile fall back via
-    # the overflow logic naturally.
-    return pallas_policy(ev.ctx.opts)
-
-
-def pallas_policy(opts) -> bool:
-    """THE sampler-backend policy: 'gather' never, 'pallas' always,
-    'auto' only on a real TPU. Every consumer (image sampling, LUT
-    application, renderer prepads) must route through this predicate."""
-    if opts.sampler == "gather":
-        return False
-    if opts.sampler == "pallas":
-        return True
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def lut_pallas_ok(ev, x) -> bool:
-    """Whether curve/gradient LUT application should use the Pallas MXU
-    kernel (pallas_policy + pos must be a full-grid array)."""
-    if not ev.ctx.is_jax:
-        return False
-    if getattr(x, "ndim", None) != 2 or x.shape != ev.ctx.shape:
-        return False
-    return pallas_policy(ev.ctx.opts)
-
-
 def sample_image(ev, img, x, y, frame=None):
     """Sample an input image at world coords (x, y) using the invocation's
     interpolation/edge settings. Returns 4 channel arrays (r, g, b, a).
@@ -143,8 +101,7 @@ def sample_image(ev, img, x, y, frame=None):
             and getattr(frame, "ndim", 0) == 0):
         # animated tiled stack with a scalar selector (incl. the T=1 case
         # and the current-frame default): select the frame's sharded block
-        # up front — the 3-D routes below (Pallas tiled incl.) then apply
-        # unchanged. Per-pixel frame arrays fall through to the 4-D gather
+        # up front. Per-pixel frame arrays fall through to the 4-D gather
         # in TiledInput.make_gather.
         import dataclasses
 
@@ -152,174 +109,11 @@ def sample_image(ev, img, x, y, frame=None):
         img = dataclasses.replace(
             img, pixels=img.pixels[img.frame_index(ev.be, fsel)])
         frame = None
-
-    if (type(img) is TiledInput and frame is None and ev.ctx.is_jax
-            and getattr(x, "ndim", 0) == 2 and x.shape == ev.ctx.shape
-            and pallas_policy(ev.ctx.opts)):
-        return _sample_pallas_tiled(ev, img, x, y)
-    if _use_pallas(ev, img) and getattr(x, "ndim", 0) == 2 and x.shape == ev.ctx.shape \
-            and (not animated or getattr(frame, "ndim", 0) == 0):
-        from ..pallas_kernels.sample_kernel import sample_image_pallas
-
-        if getattr(img.pixels, "ndim", 3) == 4:
-            # scalar frame: select the frame's pixels (+ its prepad slice,
-            # when the renderer stacked per-frame prepads) and sample it as
-            # a regular image. Per-pixel frame arrays take the gather path.
-            # T==1 stacks (single-frame GIFs) land here too — the kernel's
-            # pad expects 3-D pixels regardless of frame count.
-            from .value import InputImage
-
-            be = ev.be
-            fsel = 0.0 if frame is None else frame
-            pre = img.prepad
-            if pre is not None:
-                pre = pre[img.frame_index(be, fsel)]
-            img = InputImage(pixels=img.frame_pixels(be, fsel),
-                             name=img.name, prepad=pre,
-                             u8_src=getattr(img, "u8_src", False))
-        return sample_image_pallas(
-            ev, img, x, y,
-            xla_fallback=lambda: _sample_xla(ev, img, x, y),
-            xla_subset=lambda xs, ys: _sample_xla(ev, img, xs, ys),
-        )
     return _sample_xla(ev, img, x, y, frame=frame)
 
 
-def _sample_pallas_tiled(ev, img, x, y):
-    """Route a TiledInput (halo-exchanged local block, parallel/halo.py)
-    through the MXU sampling kernel — the input-sharded path previously
-    always paid the ~6 ns/element XLA gather (the one multi-chip path not
-    running the flagship kernels).
-
-    The kernel samples the EXT block (tile + halos) as a standalone image
-    with PRE-MAPPED pixel coordinates: world -> global pixel coords ->
-    the GLOBAL edge coordinate map (same _edge_map_coord as single-chip)
-    -> local shift by row/col_base (mod-global for 'wrap', so seam
-    samples land on the ring-wrapped halo exactly like make_gather's
-    per-tap arithmetic). Edge content the coordinate map cannot express
-    locally lives in the block itself: halo.py paints global-edge
-    devices' halos for 'color'/'reflect', and the ext prepad's apron
-    replicates boundary rows ('clamp' — the gather path's clip-into-block
-    semantics) except under 'color', whose apron is the edge color.
-
-    Out-of-contract samples with check=False CLAMP into the block like the
-    gather path (coords are clipped to the kernel's valid [-3, ext+2]
-    domain below — without the clip, a block displaced wholly above its
-    ext would pass the max-only tier fit and index its VMEM window at
-    negative offsets: Python-wrap in interpret mode, UNDEFINED on Mosaic;
-    review finding). Which block row a violating tap clamps TO may differ
-    from the gather path's choice — unspecified content either way. The
-    halo-violation check mirrors make_gather's: mod-global tap endpoints
-    past the ext block feed the violation hook (top-level samples only —
-    same loop_depth gate the gather hook applies)."""
-    import jax.numpy as jnp
-
-    from ..pallas_kernels.sample_kernel import (_edge_map_coord, _tap_range,
-                                                sample_image_pallas)
-    from .value import InputImage, localize_period
-
-    opts = ev.ctx.opts
-    gh, gw = img.global_shape
-    ext_h, ext_w = int(img.pixels.shape[0]), int(img.pixels.shape[1])
-    col_sharded = bool(img.global_width)
-
-    # wrap/reflect edge content beyond the global edge exists ONLY in the
-    # painted/ring halo — a halo thinner than the interpolation margin
-    # cannot hold it (the clamp apron would silently stand in: wrong rows
-    # at the global edge, and the mod-global violation metric wraps those
-    # taps back inside so check=True cannot flag it; review finding).
-    # auto_halo always includes the margin; thinner explicit halos take
-    # the exact gather path, which edge-maps every tap globally.
-    # The halo widths come from the TiledInput itself — NOT inferred as
-    # (ext - grid_shape)//2: on region renders grid_shape is the
-    # (smaller) evaluation window, and the inferred halo overestimates,
-    # skipping this fallback exactly when it is needed (review r5).
-    margin = {"nearest": 1, "bilinear": 2, "bicubic": 3}[opts.interpolation]
-    if opts.edge_y in ("wrap", "reflect") and img.halo_y < margin:
-        return _sample_xla(ev, img, x, y)
-    if col_sharded and opts.edge_x in ("wrap", "reflect") \
-            and img.halo_x < margin:
-        return _sample_xla(ev, img, x, y)
-
-    px, py = world_to_pixel(jnp, x, y, gw, gh)
-    pxg = _edge_map_coord(jnp, px, gw, opts.edge_x)
-    pyg = _edge_map_coord(jnp, py, gh, opts.edge_y)
-
-    # localize (shared with make_gather — value.localize_period holds the
-    # period-adjustment subtleties), then clip to the kernel's coordinate
-    # domain (check=False clamp-into-block; in-contract coords unaffected)
-    if opts.edge_y == "wrap":
-        py_loc = localize_period(jnp, pyg, img.row_base, float(gh),
-                                 float(ext_h))
-    else:
-        py_loc = pyg - img.row_base
-    py_loc = jnp.clip(py_loc, -3.0, float(ext_h) + 2.0)
-    if col_sharded:
-        if opts.edge_x == "wrap":
-            px_loc = localize_period(jnp, pxg, img.col_base, float(gw),
-                                     float(ext_w))
-        else:
-            px_loc = pxg - img.col_base
-        px_loc = jnp.clip(px_loc, -3.0, float(ext_w) + 2.0)
-    else:
-        px_loc = pxg  # unsharded axis: identical to the single-chip path
-
-    if img.violation_hook is not None:
-        # mirror make_gather's check: edge-map each tap index GLOBALLY
-        # (like _edge_index), localize mod-global (a below-block violation
-        # wraps to a large local index), measure past the ext block.
-        # EVERY tap is checked, not just the range endpoints: the reflect
-        # map is non-monotonic, so the max mapped tap can sit at an
-        # interior tap (bicubic taps {gh-2..gh+1} map to {gh-2, gh-1,
-        # gh-1, gh-2} — both endpoints under-report by 1 row; review r5).
-        # Cost is ≤2 extra cheap elementwise ops, only under check=True.
-        half = 0.5 if opts.interpolation == "nearest" else 0.0
-        tap_lo, n_taps = _tap_range(opts.interpolation)
-
-        def _tap_excess(pg, behavior, n, base, ext_n):
-            exc = None
-            for k in range(tap_lo, tap_lo + n_taps):
-                t = jnp.floor(pg + half) + k
-                if behavior == "color":
-                    t = jnp.clip(t, 0, n - 1)
-                elif behavior == "reflect":
-                    m = jnp.mod(t, float(2 * n))
-                    t = jnp.where(m < n, m, 2.0 * n - 1.0 - m)
-                e = jnp.max(jnp.mod(t - base, float(n))) - (ext_n - 1)
-                exc = e if exc is None else jnp.maximum(exc, e)
-            return exc
-
-        excess = _tap_excess(pyg, opts.edge_y, gh, img.row_base, ext_h)
-        if col_sharded:
-            excess = jnp.maximum(
-                excess,
-                _tap_excess(pxg, opts.edge_x, gw, img.col_base, ext_w))
-        img.violation_hook(excess)
-
-    apron_y = "color" if opts.edge_y == "color" else "clamp"
-    apron_x = (opts.edge_x if not col_sharded
-               else ("color" if opts.edge_x == "color" else "clamp"))
-    local = InputImage(pixels=img.pixels, name=img.name,
-                       u8_src=getattr(img, "u8_src", False))
-    # the fallback/subset closures trace into lax.cond branches, where the
-    # gather path's violation hook (a trace-level side channel) would leak
-    # tracers out of the cond; the top-level tap-endpoint check above
-    # already covers EVERY sample position, so the fallbacks run with the
-    # hook suppressed
-    import dataclasses
-
-    img_nohook = dataclasses.replace(img, violation_hook=None)
-    return sample_image_pallas(
-        ev, local, x, y,
-        xla_fallback=lambda: _sample_xla(ev, img_nohook, x, y),
-        xla_subset=lambda xs, ys: _sample_xla(ev, img_nohook, xs, ys),
-        edge_x=apron_x, edge_y=apron_y,
-        pixel_coords=(px_loc, py_loc),
-    )
-
-
 def _sample_xla(ev, img, x, y, frame=None):
-    """The XLA gather formulation (always-correct fallback + oracle path)."""
+    """The XLA gather formulation: the jit path and the oracle path."""
     be = ev.be
     opts = ev.ctx.opts
     h, w = img.global_shape

@@ -1,9 +1,9 @@
-"""Whole-grid tracing evaluator — the TPU replacement for the reference's
+"""Whole-grid tracing evaluator — the replacement for the reference's
 compiler middle end + C-codegen/interpreter backends.
 
 Reference shape (SURVEY.md §3.2 [unverified — mount empty, SURVEY.md §0]):
 `compile_mathmap()` parses, builds SSA, optimizes, then either emits C
-(gcc+dlopen) or interprets the IR per pixel. The TPU design (SURVEY §7):
+(gcc+dlopen) or interprets the IR per pixel. The design (SURVEY §7):
 bind `x`/`y` to whole-grid coordinate arrays and evaluate the AST ONCE —
 every scalar op becomes an elementwise array op; under `jax.jit` XLA fuses
 the entire filter into one program and performs the folding/CSE/DCE the
@@ -135,9 +135,8 @@ class RenderContext:
     #: eager loop) — side-channel hooks (halo violation check) must not
     #: capture traced values from there
     loop_depth: int = 0
-    #: True while tracing inside a Pallas kernel (while_kernel fast path):
-    #: gates off anything that would nest a pallas_call or use Mosaic-
-    #: unsupported ops
+    #: True while tracing inside the loop kernel (pallas_kernels/
+    #: while_kernel): gates off anything that would nest a pallas_call
     in_pallas: bool = False
     #: component dtype; None = backend float32. The oracle interpreter can
     #: run in float64 ('1-ulp-equivalent' validation, BASELINE north star).
@@ -156,50 +155,10 @@ class RenderContext:
     inline_depth: int = 0
     max_inline_depth: int = 32
 
-    #: When set, the whole evaluation runs in BASE-BLOCK LAYOUT: grids are
-    #: (nby*nbx, 512) arrays where row b holds the (8, 64) pixel block
-    #: (b // nbx, b % nbx) flattened row-major — exactly the Pallas
-    #: sampling kernel's native tile layout, so sampler I/O needs NO
-    #: transposes and per-block planning stats are plain axis reductions
-    #: (measured 4K: flatten+unflatten cost ~4.8 ms/frame in (H, W) mode).
-    #: Elementwise filter math is layout-blind; rand() and the coordinate
-    #: grids encode global pixel identity explicitly (see rand_uniform /
-    #: render.coordinate_grids). Value: (nby, nbx). Only for unsharded jax
-    #: renders; the final frame is unflattened once at output assembly.
-    base_layout: tuple | None = None
-    #: Pixel dims of this device's LOCAL tile for BASE-LAYOUT mesh-sharded
-    #: renders (parallel/shard.py port of the perf path): base_layout then
-    #: tiles the local (local_height, local_width) region and
-    #: (tile_row0, tile_col0) is its global pixel origin (traced under
-    #: shard_map). None = unsharded. ((H, W)-layout sharded renders use
-    #: grid_shape + row/col_offset instead; the while engine's tiled
-    #: sub-contexts use grid_shape + block-id offsets WITH base_layout —
-    #: three distinct mechanisms on purpose.)
-    local_height: int | None = None
-    local_width: int | None = None
-    tile_row0: Any = 0
-    tile_col0: Any = 0
-    #: >1 = supersampled render evaluated STACKED: base_layout's block
-    #: rows are ss_stack²·nby — segment k holds subsample k's grid with
-    #: its subpixel offset baked in — so ONE evaluation (one sampler
-    #: planning + launch set) covers every subsample; render_frame
-    #: averages the segments. Only for base-layout jit renders of
-    #: rand()-free filters (rand draws a fresh counter per sequential
-    #: subsample evaluation — stacking would change its stream).
-    ss_stack: int = 1
-    #: Optional precomputed undisplaced coordinate grids (x0, y0) matching
-    #: ctx.shape — JitRenderer builds them once per configuration (the
-    #: base-layout iota/div/min construction costs ~1 ms per 4K frame) and
-    #: passes them as device args; coordinate_grids adds subpixel offsets.
-    grid_xy: tuple | None = None
-
     @property
     def shape(self):
         if self.grid_shape is not None:
             return self.grid_shape
-        if self.base_layout is not None:
-            nby, nbx = self.base_layout
-            return (nby * nbx, 512)
         return (self.height, self.width)
 
 
@@ -236,47 +195,17 @@ class Evaluator:
         h, w = self.ctx.shape
         # Linear index in the GLOBAL pixel grid so sharded and unsharded
         # renders draw identical per-pixel randomness. The jax path builds
-        # it from 2-D iotas (1-D vectors don't lower in Mosaic, so this
-        # keeps rand() usable inside the in-VMEM while engine).
+        # it from 2-D iotas, which also lower inside the loop kernel
+        # (pallas_kernels/while_kernel).
         if self.ctx.is_jax:
             import jax
 
-            if self.ctx.base_layout is not None:
-                # base-block layout: recover the global (row, col) of each
-                # position from (block, pixel) iotas; padding positions get
-                # out-of-frame indices (their values are cropped away).
-                # row/col offsets here are offsets INTO THE BASE-LAYOUT
-                # ARRAY (the while engine's tiled sub-context sets them per
-                # pallas tile) — apply them to the block/pixel ids BEFORE
-                # decoding, or in-kernel rand would read local tile iotas
-                # as global ids (a tile-repeating noise field).
-                assert self.ctx.ss_stack == 1, \
-                    "rand() under stacked supersampling (renderer gates this)"
-                nby, nbx = self.ctx.base_layout
-                b = (jax.lax.broadcasted_iota(be.uint32, (h, w), 0)
-                     + be.asarray(self.ctx.row_offset, dtype=be.uint32))
-                p = (jax.lax.broadcasted_iota(be.uint32, (h, w), 1)
-                     + be.asarray(self.ctx.col_offset, dtype=be.uint32))
-                # tile_row0/col0: global pixel origin of a mesh-sharded
-                # base-layout tile — sharded and unsharded renders draw
-                # identical per-pixel randomness
-                iy = ((b // nbx) * 8 + p // 64
-                      + be.asarray(self.ctx.tile_row0, dtype=be.uint32))
-                ix = ((b % nbx) * 64 + p % 64
-                      + be.asarray(self.ctx.tile_col0, dtype=be.uint32))
-            else:
-                iy = (jax.lax.broadcasted_iota(be.uint32, (h, w), 0)
-                      + be.asarray(self.ctx.row_offset, dtype=be.uint32))
-                ix = (jax.lax.broadcasted_iota(be.uint32, (h, w), 1)
-                      + be.asarray(self.ctx.col_offset, dtype=be.uint32))
+            iy = (jax.lax.broadcasted_iota(be.uint32, (h, w), 0)
+                  + be.asarray(self.ctx.row_offset, dtype=be.uint32))
+            ix = (jax.lax.broadcasted_iota(be.uint32, (h, w), 1)
+                  + be.asarray(self.ctx.col_offset, dtype=be.uint32))
             idx = iy * be.asarray(self.ctx.width, dtype=be.uint32) + ix
         else:
-            # the numpy branch decodes NO base layout: guard the trap
-            # explicitly (review r5) — an oracle context with base_layout
-            # set would read (nby*nbx, 512) as literal rows/cols and
-            # silently break jit-vs-oracle rand parity
-            assert self.ctx.base_layout is None, (
-                "rand() on the numpy backend does not decode base_layout")
             iy = be.arange(h, dtype=be.uint32) + be.asarray(self.ctx.row_offset, dtype=be.uint32)
             ix = be.arange(w, dtype=be.uint32) + be.asarray(self.ctx.col_offset, dtype=be.uint32)
             idx = iy[:, None] * be.asarray(self.ctx.width, dtype=be.uint32) + ix[None, :]
@@ -292,8 +221,7 @@ class Evaluator:
         v = v ^ (v >> 15)
         v = v * be.asarray(0x846CA68B, dtype=be.uint32)
         v = v ^ (v >> 16)
-        # cast via int32: the 24-bit value is exact either way, and Mosaic
-        # (the in-VMEM while engine) has no uint32->float32 cast
+        # cast via int32: the 24-bit value is exact either way
         return (v >> 8).astype(be.int32).astype(be.float32) * (1.0 / 16777216.0)
 
     def _mix_salt(self, loop_i):
@@ -798,8 +726,9 @@ class Evaluator:
             """One iteration under `mask`; returns (new_flat, next_mask).
             The mask is carried and ANDed monotonically, so the condition is
             evaluated once per iteration (not again in lax's cond_fn).
-            `tile` = (ctx, x, y, base_env) runs the step on a Pallas-kernel
-            tile instead of the whole grid (pallas_kernels/while_kernel)."""
+            `tile` = (ctx, x, y, base_env) runs the step on one block of
+            the loop kernel instead of the whole grid
+            (pallas_kernels/while_kernel)."""
             # match the baked trace constants; the per-loop-site nonce
             # offsets the counter so two sequential loops draw different
             # streams (they'd otherwise reset to the same base)
@@ -826,7 +755,7 @@ class Evaluator:
             flat0 = self._run_body_once(node, flat0, unpack, repack)
             consts0 = tuple(None for _ in consts0)
         flat0, mask0 = eval_cond(flat0, None, self.salt_extra, consts=consts0)
-        cond0_t = cond_const[0]   # before pallas/lax tracing clobbers it
+        cond0_t = cond_const[0]   # before kernel/lax tracing clobbers it
         consts0 = carry_consts[0]  # post-cond-sequence const carry
         mask0 = be.broadcast_to(mask0, self.ctx.shape)
         counter_loop = self.ctx.rand_counter
@@ -846,17 +775,14 @@ class Evaluator:
             # mask overshoot (the masked path evaluates bodies in blocks
             # of K=4, overshooting short loops by up to K-1 noise-call-
             # heavy bodies), and straight-line code XLA fuses across
-            # iterations. Tried BEFORE the in-VMEM while engine: with a
-            # static trip count there is no divergence for its early-exit
-            # masking to exploit (measured 1024² lissajous/64-iter:
-            # unroll 11.2 ms vs engine 14.2 vs lax 11.8; voronoi
-            # 28.3 vs lax 55.6 — benchmarks/probe_unroll.py). Bails
-            # onward the moment a cond stops folding or the count
+            # iterations. Tried BEFORE the loop kernel: with a static trip
+            # count there is no divergence for its early exit to exploit.
+            # Bails onward the moment a cond stops folding or the count
             # exceeds the budget; partially traced steps become dead
             # code XLA eliminates.
-            # pallas_while='on' is documented as FORCING the in-VMEM
-            # engine (options.py) — honor it over the unroll when the
-            # loop is engine-eligible
+            # pallas_while='on' is documented as FORCING the loop kernel
+            # (options.py) — honor it over the unroll when the loop is
+            # kernel-eligible
             wk_eligible = (self.salt_extra is None
                            and WK.eligible(self.ctx, node, env=self.env))
             wk_forced = (getattr(self.ctx.opts, "pallas_while", "auto")
@@ -894,8 +820,9 @@ class Evaluator:
 
             flat_pallas = None
             if wk_eligible:
-                # in-VMEM fractal fast path (HBM carry traffic 1/8th);
-                # None = a dependency disqualified it, use the XLA loop
+                # fractal fast path: carries stay in registers, each
+                # block exits on its own; None = a dependency disqualified
+                # it, use the XLA loop
                 self.ctx.loop_depth += 1
                 try:
                     flat_pallas = WK.launch(

@@ -100,8 +100,7 @@ def convert_userval(ctx, p: Param, value) -> TupleValue:
         if isinstance(value, InputImage):
             return image_value(value)
         arr = np.asarray(value)
-        u8_src = arr.dtype == np.uint8
-        if u8_src:
+        if arr.dtype == np.uint8:
             # same /255 rule as the positional inputs' in-trace
             # normalization (render.float_inputs) — a u8 image param must
             # not feed 0-255 values to the filter (review r3)
@@ -113,6 +112,5 @@ def convert_userval(ctx, p: Param, value) -> TupleValue:
             raise MMTypeError(
                 f"image userval {p.name!r} needs an (H,W,4) or animated "
                 f"(T,H,W,4) array", p.span)
-        return image_value(InputImage(pixels=be.asarray(arr), name=p.name,
-                                      u8_src=u8_src))
+        return image_value(InputImage(pixels=be.asarray(arr), name=p.name))
     raise MMTypeError(f"unknown userval kind {p.kind!r}", p.span)

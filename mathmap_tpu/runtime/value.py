@@ -1,7 +1,7 @@
 """Runtime value model for the tracer.
 
 A MathMap value is a tagged tuple (reference `tuples.c` [unverified — mount
-empty, SURVEY.md §0]). The TPU design (SURVEY.md §7): tuple components are
+empty, SURVEY.md §0]). The design (SURVEY.md §7): tuple components are
 kept as separate backend arrays — each component is either a scalar () or a
 whole-grid (H, W) array — so every scalar op of the reference's per-pixel
 program becomes one elementwise array op over the grid and XLA fuses the
@@ -98,16 +98,6 @@ class InputImage(ImageBase):
 
     pixels: Any  # backend array (H, W, 4) or (T, H, W, 4), float32 RGBA
     name: str = "in"
-    #: optional precomputed padded multi-copy x-major image for the Pallas
-    #: sampler (pallas_kernels/sample_kernel.py) — lets the renderer build
-    #: it ONCE per input instead of once per frame (the reference keeps its
-    #: drawable prepared in the tile cache similarly). For animated inputs:
-    #: a (T, ...) stack of per-frame prepads.
-    prepad: Any = None
-    #: the caller's array was uint8 (pixels here are its /255 floats):
-    #: enables the sampler's EXACT-u8 kernel path (integer bf16 pads —
-    #: sample_kernel.exact_u8_eligible) when the edge behaviors allow it.
-    u8_src: bool = False
 
     @property
     def num_frames(self) -> int:
@@ -151,9 +141,8 @@ class InputImage(ImageBase):
         flat = self.pixels.reshape(h * w, 4)
 
         def gather(iy, ix):
-            # one gather of a contiguous (1,4) RGBA slice per tap — 4x fewer
-            # gather ops than per-channel takes (TPU gathers are the
-            # bottleneck; see pallas_kernels/sample_kernel.py)
+            # one gather of a contiguous (1,4) RGBA row per tap — 4x fewer
+            # gather ops than per-channel takes
             g = be.take(flat, iy * w + ix, axis=0)
             return [g[..., c] for c in range(4)]
 
@@ -167,10 +156,9 @@ class InputImage(ImageBase):
 
 def localize_period(be, g, base, n, ext_n):
     """Local position of a globally edge-mapped tap index / coordinate `g`
-    on a halo-extended block (THE shared localization for the gather path
-    and the Pallas tiled route — runtime/sampling._sample_pallas_tiled):
-    the plain shift g - base, adjusted by ONE global period when that
-    shift is both outside [0, ext) AND a true period overflow. Wrap-seam
+    on a halo-extended block (TiledInput.make_gather): the plain shift
+    g - base, adjusted by ONE global period when that shift is both
+    outside [0, ext) AND a true period overflow. Wrap-seam
     taps move onto the ring-wrapped halo (device 0 with base=-halo sees
     global n-1 as halo-1, its lead halo); everything in-contract stays a
     plain shift. Two hazards shaped the conditions:
@@ -180,8 +168,8 @@ def localize_period(be, g, base, n, ext_n):
       through the ext interior: bottom-edge taps (shift in [n, n+halo))
       wrapped to the LEAD halo — accidentally correct while halos held
       ring-wrap content, silently wrong once _paint_edge_halo rewrites
-      global-edge halos for color/reflect (found on real TPU: reflected
-      bottom rows mirrored);
+      global-edge halos for color/reflect (reflected bottom rows
+      mirrored);
     - subtracting the period for EVERY shift >= ext sent below-block
       contract-VIOLATING taps (shift in [ext, n)) negative, which the
       caller's final clip landed on the possibly-repainted lead halo
@@ -196,27 +184,20 @@ def localize_period(be, g, base, n, ext_n):
 @dataclass
 class TiledInput(InputImage):
     """A grid-sharded input: `pixels` is this device's row/col block PLUS
-    halo rows/cols exchanged from ring neighbors over ICI (parallel/halo.py
+    halo rows/cols exchanged from ring neighbors (parallel/halo.py
     — the sequence/context-parallel analog, SURVEY §2.2 SP row). Global
     index (row_base, col_base) maps to local (0, 0). Sampling beyond the
     halo clamps into the block — the caller's bounded-displacement contract
     (recorded when `violation_hook` is set). An ANIMATED tiled input holds
     a (T, ext_h, ext_w, 4) stack of identically-sharded frames: scalar
     frame selectors (incl. the current-frame default) are resolved by
-    frame-selecting the stack BEFORE routing (sampling.sample_image), so
-    only per-pixel frame arrays reach the 4-D gather here."""
+    frame-selecting the stack up front (sampling.sample_image), so only
+    per-pixel frame arrays reach the 4-D gather here."""
 
     global_height: int = 0
     global_width: int = 0  # 0 = not column-sharded (block spans full width)
     row_base: Any = 0  # global row of local row 0 (may be traced)
     col_base: Any = 0
-    #: static halo widths actually exchanged/painted around the block.
-    #: The Pallas tiled sampler's thin-halo guard needs these explicitly:
-    #: inferring them as (ext - grid_shape)//2 breaks on region renders,
-    #: where grid_shape is the (smaller) evaluation window, not the tile
-    #: (review r5 — the overestimate skipped the wrap/reflect fallback).
-    halo_y: int = 0
-    halo_x: int = 0
     #: optional callable(excess_scalar) recording how far past the halo a
     #: sample reached (<=0 = contract held) — parallel/halo.py debug check
     violation_hook: Any = None
@@ -300,9 +281,8 @@ class Curve:
     """A user-editable 1D function, sampled as a LUT (userval.c curve widget).
 
     The LUT is a (resolution,) array mapping [0,1] -> [0,1] (256 entries =
-    every uint8 output level; keeps the whole padded LUT inside one Pallas
-    sampler window). Application
-    outside [0,1] clamps, matching widget behavior [unverified].
+    every uint8 output level). Application outside [0,1] clamps, matching
+    widget behavior [unverified].
     """
 
     lut: Any  # (N,) array

@@ -2,19 +2,24 @@
 
 `python -m mathmap_tpu --selftest` renders a battery of path-exercising
 configs (pointwise math, warp sampling at each interpolation/edge class,
-LUT application, noise, the while-loop engine, static unroll, animated
-frame indexing, supersampling, batch) and checks each against the NumPy
-oracle — the operational analog of `benchmarks/tpu_drive_matrix.py`
-sized to run in seconds. Use it after deploying to new hardware or a new
-jax/libtpu build: interpret-mode tests cannot catch TPU-only divergence
-classes (Mosaic lowering, addressing, bf16 envelopes), this can.
+LUT application, noise, the while loop, static unroll, animated frame
+indexing, supersampling) and checks each against the NumPy oracle — a
+seconds-long subset of chip_smoke.py's path matrix. Use it after deploying
+to new hardware or a new jax build: the CPU tests cannot see what the
+GPU's compiler makes of a program, this can.
 
-Tolerances are the hardware-calibrated bf16 envelopes from
-docs/PERFORMANCE.md when the Pallas sampler is active (TPU), and float32
-rounding scale on CPU (gather path). Exit code 0 = all passed.
+Tolerances (max abs error vs the oracle): 1e-5 on CPU, where XLA and
+NumPy share the host's libm up to fusion order; 2e-4 on a GPU, where
+XLA's own transcendental implementations differ from NumPy's in the last
+bits and a warp carries that coordinate difference into the sampled
+value. Two classes use a fraction rule instead: escape-time loops
+(|Δiter| <= 1 on a chaotic boundary moves a whole gradient step), and
+nearest sampling on a GPU, where a coordinate within ulps of a texel
+boundary may round to the neighbouring texel (at most 0.5% of pixels).
+Exit code 0 = all passed.
 
 Reference analog: none — the reference has no automated acceptance suite
-(SURVEY.md §4); this is TPU-deployment tooling.
+(SURVEY.md §4); this is deployment tooling.
 """
 
 from __future__ import annotations
@@ -67,16 +72,8 @@ def run_selftest(size: int = 128, verbose: bool = False) -> int:
     from . import RenderOptions, compile_source
 
     backend = jax.default_backend()
-    # Pallas engages via sampler='auto' only on TPU; its bf16 envelope is
-    # interpolation-dependent (PERFORMANCE.md, hardware-calibrated).
-    # |Δiter| <= 1 on chaotic escape boundaries can move a full gradient
-    # step — the while-loop config uses a fraction-based check instead.
-    on_tpu = backend == "tpu"
-    tol = {
-        "nearest": 2.5e-3 if on_tpu else 1e-5,
-        "bilinear": 7e-3 if on_tpu else 1e-5,
-        "bicubic": 9e-3 if on_tpu else 1e-5,
-    }
+    # see the module docstring for why the two backends differ
+    lim = 1e-5 if backend == "cpu" else 2e-4
     rng = np.random.RandomState(7)
     img = rng.rand(size, size, 4).astype(np.float32)
     img[..., 3] = 1.0
@@ -100,8 +97,11 @@ def run_selftest(size: int = 128, verbose: bool = False) -> int:
                 frac = float((np.abs(got - want) > 0.02).mean())
                 ok = frac < 0.01
                 detail = f"frac>{0.02}={frac:.4f}"
+            elif backend != "cpu" and kw.get("interpolation") == "nearest":
+                frac = float((np.abs(got - want).max(-1) > lim).mean())
+                ok = frac <= 5e-3
+                detail = f"frac>{lim:g}={frac:.4f} max={err:.2e}"
             else:
-                lim = tol[kw.get("interpolation", "bilinear")]
                 ok = err <= lim
                 detail = f"max={err:.2e} tol={lim:g}"
             dt = time.perf_counter() - t0

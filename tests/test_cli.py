@@ -14,7 +14,6 @@ ENV = {
     "PYTHONPATH": ".",
     "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
     "HOME": os.environ.get("HOME", "/root"),
-    "MMTPU_PLATFORM": "cpu",
     "JAX_PLATFORMS": "cpu",
 }
 

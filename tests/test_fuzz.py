@@ -102,11 +102,9 @@ def test_random_expression_parity(seed):
 
 
 @pytest.mark.parametrize("seed", range(100, 112))
-def test_random_warp_random_ladder_matches_gather(seed):
-    """Random bounded warps through origVal under RANDOM Pallas tier
-    ladders (tiny windows force per-tile escalation and the gather
-    fallback; random subw stresses per-chunk offset clipping) must match
-    the exact gather path at the f32-mode tolerance."""
+def test_random_warp_matches_oracle(seed):
+    """Random bounded warps through origVal (random amplitude/frequency and
+    interpolation) on the jit gather path vs the oracle."""
     rng = np.random.RandomState(seed)
     amp = float(rng.uniform(0.5, 6.0))
     fx = float(rng.uniform(0.05, 0.4))
@@ -114,63 +112,41 @@ def test_random_warp_random_ladder_matches_gather(seed):
     src = (f"filter fwarp (image in)\n"
            f"  in(xy + xy:[{amp:.3f} * sin(y * {fy:.3f}),"
            f" {amp:.3f} * cos(x * {fx:.3f})])\nend")
-    n_tiers = int(rng.randint(1, 5))
-    tiers = []
-    for _ in range(n_tiers):
-        tw = int(rng.choice([64, 128, 256]))
-        wh = int(rng.choice([32, 64, 96]))
-        ww = int(rng.choice([32, 64, 96, 128, 192, 256]))
-        sw = int(rng.choice([0, 48, 80])) if tw > 64 else 0
-        tiers.append((8, tw, wh, ww, sw))
+    interp = ["bilinear", "bicubic"][seed % 2]
     img = rng.rand(72, 320, 4).astype(np.float32)
     f = mm.compile(src)
-    a = f.render(img, width=320, height=72, t=0.0,
-                 options=mm.RenderOptions(
-                     sampler="pallas", pallas_precision="f32",
-                     pallas_per_tile="on", pallas_tiers=tuple(tiers)))
-    b = f.render(img, width=320, height=72, t=0.0,
-                 options=mm.RenderOptions(sampler="gather"))
+    opts = mm.RenderOptions(interpolation=interp)
+    a = f.render(img, width=320, height=72, t=0.0, options=opts)
+    b = f.render(img, width=320, height=72, t=0.0, options=opts,
+                 interpret=True)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-5,
-                               err_msg=f"tiers={tiers} amp={amp}")
+                               err_msg=f"{interp} amp={amp}")
 
 
 @pytest.mark.parametrize("seed", range(200, 210))
-def test_random_anisotropic_subchunk_tier_matches_gather(seed):
-    """Random ANISOTROPIC affine warps through forced sub-chunk tiers
-    (subw on a 64-wide tile): the per-(8,16)-strip planner stats must
-    describe exactly what the masked-strip kernel samples (ADVICE r2 high
-    — the old contiguous-slice kernel failed this class with errors ~1.0);
-    unclaimed strips/blocks escalate or patch, staying exact."""
+def test_random_anisotropic_affine_warp_matches_oracle(seed):
+    """Random ANISOTROPIC affine warps (independent x/y scales and a
+    shear) at each interpolation: jit gather vs the oracle."""
     rng = np.random.RandomState(seed)
     sx = float(rng.uniform(0.3, 3.5))
     sy = float(rng.uniform(0.3, 3.5))
     shear = float(rng.uniform(-1.5, 1.5))
     src = (f"filter aff (image in)\n"
            f"  in(xy:[x * {sx:.3f} + y * {shear:.3f}, y * {sy:.3f}])\nend")
-    wh = int(rng.choice([96, 128, 192]))
-    ww = int(rng.choice([96, 128, 192, 256]))
-    # sub-chunk subw must be a multiple of 32 and leave >=32 of window slack
-    sw = min(int(rng.choice([64, 96, 128])), min(wh, ww) - 32)
-    tiers = ((8, 64, wh, ww, sw),)
     img = rng.rand(64, 256, 4).astype(np.float32)
     interp = ["nearest", "bilinear", "bicubic"][seed % 3]
     f = mm.compile(src)
-    a = f.render(img, width=256, height=64,
-                 options=mm.RenderOptions(
-                     sampler="pallas", pallas_precision="f32",
-                     pallas_per_tile="on", pallas_tiers=tiers,
-                     interpolation=interp))
-    b = f.render(img, width=256, height=64,
-                 options=mm.RenderOptions(sampler="gather",
-                                          interpolation=interp))
+    opts = mm.RenderOptions(interpolation=interp)
+    a = f.render(img, width=256, height=64, options=opts)
+    b = f.render(img, width=256, height=64, options=opts, interpret=True)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4,
-                               err_msg=f"tiers={tiers} sx={sx} sy={sy} shear={shear}")
+                               err_msg=f"sx={sx} sy={sy} shear={shear}")
 
 
 @pytest.mark.parametrize("seed", range(220, 228))
 def test_random_animated_frame_indexing_parity(seed):
-    """Random frame-index expressions over animated inputs: jit (gather or
-    frame-selected Pallas) must match the oracle."""
+    """Random frame-index expressions over animated inputs: jit must match
+    the oracle."""
     rng = np.random.RandomState(seed)
     t_frames = int(rng.randint(2, 5))
     k = int(rng.randint(0, t_frames + 2))  # may exceed T-1: clamps
@@ -282,16 +258,16 @@ def test_fuzz_const_bound_folds_and_unrolls(seed):
 
 
 @pytest.mark.parametrize("seed", range(300, 316))
-def test_random_expression_sharded_parity(seed):
+def test_random_expression_sharded_parity(seed, while_kernel_interpret):
     """Random programs (loops, shadowing, rand, sampling) rendered over a
     virtual device mesh must match the unsharded render to ~1 ulp — the
     sharding layer may not change semantics for any language feature.
     (Not bitwise: XLA lowers transcendentals with shape-dependent
     vectorization, so sin() on a 16x8 tile can differ from the 16x32
     program by 1 ulp even with identical inputs — observed on seed 311's
-    column mesh with DEFAULT options.) Odd seeds force the in-VMEM while
-    engine (round 3: it runs inside mesh tiles), so loop-bearing programs
-    fuzz that path sharded too."""
+    column mesh with DEFAULT options.) Odd seeds force the per-pixel loop
+    kernel (interpret mode; it runs inside mesh tiles), so loop-bearing
+    programs fuzz that path sharded too."""
     from mathmap_tpu.parallel.mesh import make_mesh
     from mathmap_tpu.parallel.shard import ShardedRenderer
 
@@ -334,12 +310,10 @@ def test_random_batch_matches_lone_renders(seed):
 
 
 @pytest.mark.parametrize("seed", range(500, 508))
-def test_random_warp_random_ladder_chain_path_matches_gather(seed):
-    """Same random-warp/random-ladder property as the per-tile fuzz above,
-    but on the CHAIN path (pallas_per_tile='off': one lax.cond tier chain
-    for the whole frame + full-table launches) — its planning, escalation
-    and SMEM tier-drop logic are separate code from the indirect per-tile
-    path and deserve their own fuzz."""
+def test_random_warp_random_edges_matches_oracle(seed):
+    """Random bounded warps under random per-axis edge behaviors (wrap,
+    reflect, color with a random color): taps past the image edge map
+    through the edge rule on the jit path exactly as in the oracle."""
     rng = np.random.RandomState(seed)
     amp = float(rng.uniform(0.5, 6.0))
     fx = float(rng.uniform(0.05, 0.4))
@@ -347,23 +321,17 @@ def test_random_warp_random_ladder_chain_path_matches_gather(seed):
     src = (f"filter fwarp (image in)\n"
            f"  in(xy + xy:[{amp:.3f} * sin(y * {fy:.3f}),"
            f" {amp:.3f} * cos(x * {fx:.3f})])\nend")
-    tiers = []
-    for _ in range(int(rng.randint(1, 5))):
-        tw = int(rng.choice([64, 128, 256]))
-        wh = int(rng.choice([32, 64, 96]))
-        ww = int(rng.choice([32, 64, 96, 128, 192, 256]))
-        sw = int(rng.choice([0, 48, 80])) if tw > 64 else 0
-        tiers.append((8, tw, wh, ww, sw))
+    edges = ("wrap", "reflect", "color")
+    ex, ey = edges[int(rng.randint(3))], edges[int(rng.randint(3))]
+    color = tuple(float(c) for c in rng.rand(4))
     img = rng.rand(72, 320, 4).astype(np.float32)
     f = mm.compile(src)
-    a = f.render(img, width=320, height=72, t=0.0,
-                 options=mm.RenderOptions(
-                     sampler="pallas", pallas_precision="f32",
-                     pallas_per_tile="off", pallas_tiers=tuple(tiers)))
-    b = f.render(img, width=320, height=72, t=0.0,
-                 options=mm.RenderOptions(sampler="gather"))
+    opts = mm.RenderOptions(edge_x=ex, edge_y=ey, edge_color=color)
+    a = f.render(img, width=320, height=72, t=0.0, options=opts)
+    b = f.render(img, width=320, height=72, t=0.0, options=opts,
+                 interpret=True)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-5,
-                               err_msg=f"tiers={tiers} amp={amp}")
+                               err_msg=f"edges={ex}/{ey} amp={amp}")
 
 
 class AlgebraGen:

@@ -18,8 +18,7 @@ def test_export_python_runs(tmp_path):
     inp = tmp_path / "in.png"
     outp = tmp_path / "out.png"
     mm.write_image(str(inp), img)
-    env = {"PYTHONPATH": ".", "PATH": "/usr/bin:/bin", "MMTPU_PLATFORM": "cpu",
-           "HOME": "/root", "JAX_PLATFORMS": "cpu"}
+    env = {"PYTHONPATH": ".", "PATH": "/usr/bin:/bin", "HOME": "/root", "JAX_PLATFORMS": "cpu"}
     proc = subprocess.run(
         [sys.executable, str(script), str(inp), str(outp), "--size", "8x8"],
         capture_output=True, text=True, env=env, timeout=300,
@@ -238,14 +237,14 @@ def test_artifact_platform_pin(tmp_path):
         load_artifact(str(pinned))
 
 
-def test_artifact_base_layout_grids_baked(tmp_path):
-    """sampler='pallas' exports ship a second grids module (run once at
-    load); runtime-arg grids keep bit-parity with the live renderer
-    (baking them as constants diverged one bf16 ulp — review r3)."""
+def test_artifact_non_default_options_parity(tmp_path):
+    """Export-time options (bicubic, wrap/reflect edges) are baked into the
+    exported program, which stays bit-equal to the live renderer."""
     from mathmap_tpu.generators.artifact import export_artifact, load_artifact
 
     f = _art_filter()
-    opts = mm.RenderOptions(sampler="pallas")
+    opts = mm.RenderOptions(interpolation="bicubic", edge_x="wrap",
+                            edge_y="reflect")
     path = tmp_path / "twp.mmxa"
     export_artifact(f, str(path), 64, 32, options=opts,
                     params={"angle": 3.0, "tint": [1, 1, 1, 1]})
@@ -256,6 +255,61 @@ def test_artifact_base_layout_grids_baked(tmp_path):
     want = np.asarray(f.render(img, width=64, height=32, t=0.2,
                                params=p, options=opts))
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("exported,current,ok", [
+    (("cuda",), "cuda", True),
+    (("cuda",), "gpu", True),     # jax.default_backend() names a CUDA card 'gpu'
+    (("rocm",), "gpu", True),
+    (("cuda",), "rocm", False),
+    (("cuda",), "cpu", False),
+    (("cpu", "cuda"), "gpu", True),
+])
+def test_artifact_platform_names_compare_canonically(exported, current, ok):
+    """'gpu' (the backend name) and 'cuda'/'rocm' (the lowering platforms
+    jax.export records) name the same card: a GPU export must load on the
+    GPU that wrote it."""
+    from mathmap_tpu.generators.artifact import _check_platform
+
+    if ok:
+        _check_platform(exported, current, "x")
+    else:
+        with pytest.raises(ValueError, match="re-export"):
+            _check_platform(exported, current, "x")
+
+
+def test_artifact_current_platform_is_lowering_name():
+    from mathmap_tpu.generators.artifact import current_platform
+
+    assert current_platform() == "cpu"
+
+
+def test_artifact_loader_refuses_foreign_classes(tmp_path):
+    """The program record is a pickle: a stream naming a class outside
+    jax/numpy (here os.system) is refused as corrupt, never executed."""
+    import pickle
+    import struct
+
+    from mathmap_tpu.generators.artifact import (_MAGIC, export_artifact,
+                                                 load_artifact)
+
+    f = _art_filter()
+    path = tmp_path / "tw.mmxa"
+    export_artifact(f, str(path), 48, 32,
+                    params={"angle": 3.0, "tint": [1, 1, 1, 1]})
+    whole = path.read_bytes()
+    (mlen,) = struct.unpack("<I", whole[len(_MAGIC):len(_MAGIC) + 4])
+    head = whole[:len(_MAGIC) + 4 + mlen]
+
+    class Evil:
+        def __reduce__(self):
+            import os
+            return (os.system, ("true",))
+
+    bad = tmp_path / "evil.mmxa"
+    bad.write_bytes(head + pickle.dumps(Evil()))
+    with pytest.raises(ValueError, match="corrupt"):
+        load_artifact(str(bad))
 
 
 def test_artifact_render_batch_parity(tmp_path):

@@ -429,14 +429,13 @@ def test_fuzz_tiled_auto_halo_end_to_end_parity(seed):
 
 
 # ---------------------------------------------------------------------------
-# TiledInput through the Pallas MXU sampler (runtime/sampling.
-# _sample_pallas_tiled): the input-sharded halo path previously always paid
-# the ~6 ns/element XLA gather — the one multi-chip surface not running the
-# flagship kernel. Parity is pinned against the exact gather path (the
-# spec); f32 precision keeps tolerances at rounding scale.
+# Tiled (input-sharded) renders vs the unsharded render: the gather samples
+# the halo-extended local block with globally edge-mapped, then localized,
+# tap indices. Parity is pinned against the unsharded render of the same
+# options at rounding scale (the block coordinates are rebased).
 # ---------------------------------------------------------------------------
 
-PH, PW = 64, 512  # kernel-scale frame so tiers claim (not the overflow path)
+PH, PW = 64, 512  # 8-row tiles on the 8-device row mesh
 
 
 def _pimage(seed=21):
@@ -445,7 +444,7 @@ def _pimage(seed=21):
     return img
 
 
-def _pallas_tiled(src, img, halo, opts, mesh_shape=(1, 8, 1), t=0.0):
+def _ktiled(src, img, halo, opts, mesh_shape=(1, 8, 1), t=0.0):
     f = mm.compile(src)
     mesh = make_mesh(*mesh_shape)
     r = TiledRenderer(mesh, f.filters, f.fdef, PW, PH, opts, halo)
@@ -453,150 +452,123 @@ def _pallas_tiled(src, img, halo, opts, mesh_shape=(1, 8, 1), t=0.0):
 
 
 def _gather_want(src, img, opts, t=0.0):
-    import dataclasses
-    g = dataclasses.replace(opts, sampler="gather")
     return np.asarray(mm.compile(src).render(img, width=PW, height=PH, t=t,
-                                             options=g))
+                                             options=opts))
 
 
-def test_tiled_pallas_wave_matches_gather():
-    """Bounded wave displacement, row mesh: the Pallas kernel samples the
-    halo-extended local block with pre-mapped pixel coords."""
+def test_tiled_wave_matches_unsharded():
+    """Bounded wave displacement, row mesh: the gather samples the
+    halo-extended local block with localized tap indices."""
     img = _pimage()
     src = "origVal(xy + xy:[3 * sin(y / 9), 2 * sin(x / 7 + t)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
-    got = _pallas_tiled(src, img, halo=5, opts=opts, t=0.37)
+    opts = mm.RenderOptions()
+    got = _ktiled(src, img, halo=5, opts=opts, t=0.37)
     want = _gather_want(src, img, opts, t=0.37)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_wrap_seam():
+def test_tiled_wrap_seam_both_axes():
     """edge wrap on both axes: seam samples land on ring-wrapped halo
     content via the mod-global localization."""
     img = _pimage(22)
     src = "origVal(xy + xy:[0, 3])"  # top rows wrap to the bottom
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            edge_x="wrap", edge_y="wrap")
-    got = _pallas_tiled(src, img, halo=5, opts=opts)
+    opts = mm.RenderOptions(edge_x="wrap", edge_y="wrap")
+    got = _ktiled(src, img, halo=5, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_reflect_edge():
-    """edge reflect: global-edge devices' halos are repainted with the
-    mirror of their own boundary rows (halo.py _paint_edge_halo)."""
+def test_tiled_reflect_edge_wave():
+    """edge reflect: global-edge taps mirror GLOBALLY before they are
+    localized, so the ring-wrapped halo of a global-edge device is never
+    read."""
     img = _pimage(23)
     src = "origVal(xy + xy:[0, 2 * sin(x / 5)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            edge_y="reflect")
-    got = _pallas_tiled(src, img, halo=4, opts=opts)
+    opts = mm.RenderOptions(edge_y="reflect")
+    got = _ktiled(src, img, halo=4, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_color_edge():
-    """edge color with a non-default color: halo paint + apron content both
-    carry the color."""
+def test_tiled_color_edge_nondefault_color():
+    """edge color with a non-default color: out-of-image taps take the
+    edge color, never halo content."""
     img = _pimage(24)
     src = "origVal(xy + xy:[0, 3])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            edge_color=(0.2, 0.4, 0.6, 1.0))
-    got = _pallas_tiled(src, img, halo=4, opts=opts)
+    opts = mm.RenderOptions(edge_color=(0.2, 0.4, 0.6, 1.0))
+    got = _ktiled(src, img, halo=4, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_column_sharded_wrap():
+def test_tiled_column_sharded_wrap_both_axes():
     """2x4 mesh (rows AND columns sharded), wrap on x: the column axis
     localizes mod-global too."""
     img = _pimage(25)
     src = "origVal(xy + xy:[4 * sin(y / 6), 2 * sin(x / 8)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            edge_x="wrap", edge_y="wrap")
-    got = _pallas_tiled(src, img, halo=(4, 6), opts=opts,
+    opts = mm.RenderOptions(edge_x="wrap", edge_y="wrap")
+    got = _ktiled(src, img, halo=(4, 6), opts=opts,
                         mesh_shape=(1, 2, 4))
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_bicubic():
+def test_tiled_bicubic_wave():
     img = _pimage(26)
     src = "origVal(xy + xy:[1.5 * sin(y / 7), 1.5 * cos(x / 9)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            interpolation="bicubic")
-    got = _pallas_tiled(src, img, halo=5, opts=opts)
+    opts = mm.RenderOptions(interpolation="bicubic")
+    got = _ktiled(src, img, halo=5, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_violation_still_raises():
-    """check=True contract checking survives the Pallas route: the tap-
-    endpoint excess check mirrors make_gather's violation hook."""
+def test_tiled_violation_raises_on_kernel_scale_frame():
+    """check=True contract checking: the violation hook sees every tap."""
     img = _pimage(27)
     src = "origVal(xy + xy:[0, 6])"  # shift 6 > halo 2
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     f = mm.compile(src)
     r = TiledRenderer(make_mesh(1, 8, 1), f.filters, f.fdef, PW, PH, opts, 2)
     with pytest.raises(mm.MMError):
         r(img)
 
 
-def test_tiled_pallas_per_tile_claims():
-    """pallas_per_tile='on' per-tile tier claims run inside the tiled path
-    (mixed-warp frames claim different tiers per tile)."""
+def test_tiled_mixed_warp_matches_unsharded():
+    """Mixed-warp frames: displacement varies strongly across tiles."""
     img = _pimage(28)
     src = "origVal(xy + xy:[3 * sin(y / 9) * sin(x / 40), 2 * sin(x / 7)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            pallas_per_tile="on")
-    got = _pallas_tiled(src, img, halo=5, opts=opts)
+    opts = mm.RenderOptions()
+    got = _ktiled(src, img, halo=5, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_route_actually_runs_kernel():
-    """Guard against the route silently degrading to the exact gather
-    fallback (which would make every parity test above pass vacuously):
-    at default bf16 precision the kernel's weight contraction rounds
-    visibly (~1e-3), so the tiled output must DIFFER from the exact gather
-    by more than f32 noise — and stay within the bf16 envelope."""
-    import dataclasses
-    img = _pimage(21)
-    src = "origVal(xy + xy:[3 * sin(y / 9), 2 * sin(x / 7 + t)])"
-    opts = mm.RenderOptions(sampler="pallas")  # default bf16
-    got = _pallas_tiled(src, img, halo=5, opts=opts, t=0.37)
-    want = _gather_want(src, img, opts, t=0.37)
-    d = float(np.abs(got - want).max())
-    assert 1e-6 < d < 6e-3, d
-
-
 @pytest.mark.parametrize("seed", range(430, 436))
-def test_fuzz_tiled_pallas_parity(seed):
-    """Random bounded-displacement warps through the tiled-Pallas route
-    (sampler='pallas', f32): parity vs the exact unsharded gather across
-    edge modes and mesh shapes. Catches localization/paint bugs the
-    hand-written cases above miss."""
+def test_fuzz_tiled_parity(seed):
+    """Random bounded-displacement warps through the tiled route: parity
+    vs the unsharded render across edge modes and mesh shapes. Catches
+    localization bugs the hand-written cases above miss."""
     g = _DispGen(seed)
     dx_e = f"clamp(({g.scalar()}) / 4, -4, 4)"
     dy_e = f"clamp(({g.scalar()}) / 4, -4, 4)"
     edge = ["color", "wrap", "reflect"][seed % 3]
     mesh_shape = (1, 8, 1) if seed % 2 else (1, 2, 4)
     src = f"origVal(xy + xy:[{dx_e}, {dy_e}])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            edge_x=edge, edge_y=edge)
+    opts = mm.RenderOptions(edge_x=edge, edge_y=edge)
     img = _pimage(seed)
     t = float(np.random.RandomState(seed).rand())
-    got = _pallas_tiled(src, img, halo=7, opts=opts, mesh_shape=mesh_shape,
+    got = _ktiled(src, img, halo=7, opts=opts, mesh_shape=mesh_shape,
                         t=t)
     want = _gather_want(src, img, opts, t=t)
     np.testing.assert_allclose(got, want, atol=5e-5, err_msg=src)
 
 
-def test_tiled_pallas_auto_halo():
-    """halo='auto' (affine-interval bound inference) composes with the
-    Pallas tiled route — the margin already covers the kernel's taps."""
+def test_tiled_auto_halo_wave():
+    """halo='auto' (affine-interval bound inference) on a wave warp: the
+    margin covers the interpolation taps."""
     img = _pimage(31)
     src = "origVal(xy + xy:[3 * sin(y / 9), 2 * sin(x / 7)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     f = mm.compile(src)
     got = np.asarray(f.render_tiled(img, halo="auto", mesh=make_mesh(1, 8, 1),
                                     width=PW, height=PH, options=opts))
@@ -604,21 +576,20 @@ def test_tiled_pallas_auto_halo():
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_nearest_mixed_edges():
+def test_tiled_nearest_mixed_edges():
     """nearest interpolation + differing per-axis edge modes through the
     tiled route (wrap rows, reflect cols on a 2x4 mesh)."""
     img = _pimage(32)
     src = "origVal(xy + xy:[2 * sin(y / 6), 3 * cos(x / 8)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            interpolation="nearest",
+    opts = mm.RenderOptions(interpolation="nearest",
                             edge_x="reflect", edge_y="wrap")
-    got = _pallas_tiled(src, img, halo=(5, 6), opts=opts,
+    got = _ktiled(src, img, halo=(5, 6), opts=opts,
                         mesh_shape=(1, 2, 4))
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-# -- 1-device-axis localization regression (found on real TPU) -------------
+# -- 1-device-axis localization regression ---------------------------------
 # On a 1-device axis ext = global + 2*halo > global: make_gather's original
 # mod-global localization wrapped in-contract bottom-edge taps onto the
 # LEAD halo — accidentally correct while halos held ring-wrap content,
@@ -627,10 +598,10 @@ def test_tiled_pallas_nearest_mixed_edges():
 
 
 
-@pytest.mark.parametrize("sampler", ["gather", "pallas"])
+@pytest.mark.parametrize("check", [True, False])
 @pytest.mark.parametrize("edges", [("wrap", "reflect"), ("reflect", "reflect"),
                                    ("color", "color"), ("wrap", "wrap")])
-def test_tiled_one_device_axis_bottom_edge(sampler, edges):
+def test_tiled_one_device_axis_bottom_edge(check, edges):
     """ny=1 row axis still carries the interpolation-margin halo; bottom
     rows displaced past the global edge must read CONTENT rows, not the
     (possibly repainted) lead halo."""
@@ -640,31 +611,28 @@ def test_tiled_one_device_axis_bottom_edge(sampler, edges):
     ex, ey = edges
     img = _pimage(40)
     src = "origVal(xy + xy:[6 * sin(y / 19), 5 * cos(x / 23 + t)])"
-    opts = mm.RenderOptions(edge_x=ex, edge_y=ey, sampler=sampler,
-                            pallas_precision="f32")
+    opts = mm.RenderOptions(edge_x=ex, edge_y=ey)
     f = mm.compile(src)
     r = TiledRenderer(mesh, f.filters, f.fdef, PW, PH, opts, 8)
     got = np.asarray(r(img, t=0.3))
     want = _gather_want(src, img, opts, t=0.3)
-    np.testing.assert_allclose(got, want, atol=5e-5, err_msg=f"{sampler} {edges}")
+    np.testing.assert_allclose(got, want, atol=5e-5, err_msg=f"{check} {edges}")
 
 
 # -- review findings: thin halos, check=False clamp semantics ---------------
 
 @pytest.mark.parametrize("interp,halo", [("nearest", 0), ("bilinear", 0),
                                          ("bilinear", 1), ("bicubic", 2)])
-def test_tiled_pallas_thin_halo_takes_gather(interp, halo):
-    """A halo thinner than the interpolation margin cannot hold wrap edge
-    content locally — the route must fall back to the exact gather (which
-    edge-maps every tap globally) instead of silently standing in the
-    clamp apron (review finding: halo=0 nearest/wrap gave max err 0.96 on
-    the boundary row with check=True raising nothing)."""
+def test_tiled_thin_halo_wrap_stays_exact(interp, halo):
+    """A halo thinner than the interpolation margin on a 1-device axis:
+    wrap taps edge-map GLOBALLY before they are localized, so the render
+    stays exact (review finding on an earlier route: halo=0 nearest/wrap
+    gave max err 0.96 on the boundary row)."""
     import jax
 
     img = _pimage(50)
     src = "origVal(xy + xy:[0, 0.4 * sin(x / 7)])"
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32",
-                            interpolation=interp, edge_y="wrap",
+    opts = mm.RenderOptions(interpolation=interp, edge_y="wrap",
                             edge_x="wrap")
     f = mm.compile(src)
     mesh = make_mesh(1, 1, 1, devices=jax.devices()[:1])
@@ -674,15 +642,12 @@ def test_tiled_pallas_thin_halo_takes_gather(interp, halo):
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
-def test_tiled_pallas_check_false_out_of_contract_is_clamped():
-    """check=False + a displacement far past the halo: the Pallas route
-    must produce in-gamut clamped content, never negative-offset window
-    reads (review finding: a block displaced wholly above its ext passed
-    the max-only tier fit and indexed VMEM at negative offsets —
-    Python-wrap in interpret mode, undefined on Mosaic)."""
+def test_tiled_check_false_out_of_contract_is_clamped():
+    """check=False + a displacement far past the halo: reads clamp into
+    the block and return in-gamut content, never out-of-block reads."""
     img = _pimage(51)
     f = mm.compile("origVal(xy + xy:[0, 40])")
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     r = TiledRenderer(make_mesh(1, 8, 1), f.filters, f.fdef, PW, PH, opts,
                       4, check=False)
     got = np.asarray(r(img))
@@ -694,12 +659,12 @@ def test_tiled_pallas_check_false_out_of_contract_is_clamped():
 
 def test_gather_check_false_below_block_clamps_to_near_edge():
     """check=False below-block violating taps must clamp to the nearest
-    block row, NOT the (possibly repainted) lead halo (review finding:
-    the first localize rewrite sent shift in [ext, n) negative, landing
-    violations on _paint_edge_halo's color/mirror content)."""
+    block row, NOT the lead halo (review finding: the first localize
+    rewrite sent shift in [ext, n) negative, landing violations on the
+    lead halo's content)."""
     img = _pimage(52)
     f = mm.compile("origVal(xy + xy:[0, -12])")
-    opts = mm.RenderOptions(sampler="gather", edge_y="color",
+    opts = mm.RenderOptions(edge_y="color",
                             edge_color=(0.9, 0.1, 0.5, 1.0))
     r = TiledRenderer(make_mesh(1, 8, 1), f.filters, f.fdef, PW, PH, opts,
                       4, check=False)
@@ -711,17 +676,15 @@ def test_gather_check_false_below_block_clamps_to_near_edge():
                                         atol=1e-3), axis=-1))
 
 
-def test_tiled_pallas_sampling_inside_loop():
-    """Loop-body samples through the tiled-Pallas route: the violation
-    hook's own loop_depth gate keeps the traced excess out of the
-    lax.while carry (same mechanism as the gather path), and the kernel
-    traces cleanly into the loop body."""
+def test_tiled_sampling_inside_loop_wave():
+    """Loop-body samples on the tiled route: the violation hook's own
+    loop_depth gate keeps the traced excess out of the lax.while carry."""
     img = _pimage(60)
     src = ("s = 0; i = 0; while i < 3 do "
            "s = s + red(origVal(xy + xy:[0, i])); i = i + 1 end; "
            "grayColor(s / 3)")
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
-    got = _pallas_tiled(src, img, halo=6, opts=opts)
+    opts = mm.RenderOptions()
+    got = _ktiled(src, img, halo=6, opts=opts)
     want = _gather_want(src, img, opts)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
@@ -742,18 +705,18 @@ def test_tiled_multi_input_matches():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_tiled_multi_input_pallas_column_mesh():
-    """Multi-input tiled through the Pallas route on a 2x4 mesh."""
+def test_tiled_multi_input_column_mesh():
+    """Multi-input tiled on a 2x4 mesh, both inputs displaced."""
     a, b = _pimage(72), _pimage(73)
     src = ("filter blend2 (image p, image q) "
            "p(xy + xy:[2*sin(y/6), 2*sin(x/7)]) * 0.5 + "
            "q(xy - xy:[2*cos(y/8), 1]) * 0.5 end")
     f = mm.compile(src)
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     got = f.render_tiled(a, b, halo=(5, 6), mesh=make_mesh(1, 2, 4),
                          width=PW, height=PH, options=opts)
     want = f.render(a, b, width=PW, height=PH,
-                    options=mm.RenderOptions(sampler="gather"))
+                    options=mm.RenderOptions())
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=5e-5)
 
 
@@ -796,51 +759,41 @@ def test_tiled_composition_two_inputs():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_tiled_pallas_animated_scalar_frame():
-    """Animated (T, PH, PW, 4) stacks under the tiled Pallas route: a
-    scalar frame selector frame-selects the sharded block BEFORE routing,
-    so the MXU kernel runs on the 3-D block exactly as for a plain tiled
-    input. Parity vs the exact gather path at frame 1; a bf16 run must
-    show kernel-scale divergence (proof the kernel actually engaged)."""
+def test_tiled_animated_scalar_frame():
+    """Animated (T, PH, PW, 4) stacks on the tiled route: a scalar frame
+    selector frame-selects the sharded block up front, so the gather runs
+    on the 3-D block exactly as for a plain tiled input. Parity vs the
+    unsharded render at frame 1."""
     stack = np.stack([_pimage(31), _pimage(32)])
     src = "origVal(xy + xy:[3 * sin(y / 9), 2 * sin(x / 7)])"
     f = mm.compile(src)
     mesh = make_mesh(1, 8, 1)
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     r = TiledRenderer(mesh, f.filters, f.fdef, PW, PH, opts, 5)
     got = np.asarray(r(stack, frame=1.0))
     import dataclasses
 
-    g = dataclasses.replace(opts, sampler="gather")
     want = np.asarray(f.render(stack, width=PW, height=PH, frame=1.0,
-                               options=g))
+                               options=opts))
     np.testing.assert_allclose(got, want, atol=5e-5)
     # frame 0 differs from frame 1 (the selector is honored, not ignored)
     got0 = np.asarray(r(stack, frame=0.0))
     assert np.abs(got0 - got).max() > 1e-3
-    # bf16 kernel divergence: beyond f32 rounding, inside the envelope
-    opts_b = mm.RenderOptions(sampler="pallas", pallas_precision="bf16")
-    rb = TiledRenderer(mesh, f.filters, f.fdef, PW, PH, opts_b, 5)
-    got_b = np.asarray(rb(stack, frame=1.0))
-    d = np.abs(got_b - want).max()
-    assert 1e-6 < d < 8e-3, f"bf16 divergence {d} — kernel did not engage?"
 
 
-def test_tiled_pallas_single_frame_stack():
-    """(1, PH, PW, 4) stacks (single-frame GIFs stay 4-D) must normalize
-    to the 3-D block before the Pallas tiled route (its ext-shape reads
-    assume 3-D pixels)."""
+def test_tiled_single_frame_stack():
+    """(1, PH, PW, 4) stacks (single-frame GIFs stay 4-D) render like
+    the 3-D image on the tiled route."""
     stack = _pimage(33)[None]
     src = "origVal(xy + xy:[0, 2 * sin(x / 7)])"
     f = mm.compile(src)
     mesh = make_mesh(1, 8, 1)
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
+    opts = mm.RenderOptions()
     r = TiledRenderer(mesh, f.filters, f.fdef, PW, PH, opts, 4)
     got = np.asarray(r(stack))
     import dataclasses
 
-    g = dataclasses.replace(opts, sampler="gather")
-    want = np.asarray(f.render(stack, width=PW, height=PH, options=g))
+    want = np.asarray(f.render(stack, width=PW, height=PH, options=opts))
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
@@ -1012,21 +965,18 @@ def test_region_tiled_supersample_grid():
     np.testing.assert_array_equal(np.where(mask, img, got), img)
 
 
-def test_region_tiled_thin_halo_takes_exact_fallback():
-    """The Pallas tiled sampler's thin-halo wrap/reflect guard must use
-    the TiledInput's true halo, not (ext - grid_shape)//2 — on region
-    renders grid_shape is the (smaller) evaluation window and the
-    inferred halo overestimates, keeping the kernel route where the
-    guard intends the exact gather fallback (review r5). Discriminator:
-    the fallback is float-exact vs the single-chip crop (1e-6), the
-    kernel route is only bf16-envelope (~2e-3 observed pre-fix)."""
+def test_region_tiled_thin_halo_is_exact():
+    """A region render on the tiled route with a halo thinner than the
+    bicubic margin under reflect edges: taps mirror globally before they
+    are localized, so the selection is float-exact vs the single-chip
+    crop (review r5 pinned this for an earlier route)."""
     himg = np.random.RandomState(41).rand(64, W, 4).astype(np.float32)
     himg[..., 3] = 1.0
     region = (0, 61, W, 3)
     src = "origVal(xy + xy:[0, 0.8])"
     got = _region_tiled(src, himg, region, halo=1, h=64,
                         opts_kw=dict(interpolation="bicubic",
-                                     edge_y="reflect", sampler="pallas"))
+                                     edge_y="reflect"))
     f = mm.compile(src)
     crop = np.asarray(f.render(
         himg, width=W, height=64,

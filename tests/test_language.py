@@ -266,18 +266,16 @@ def test_render_batch_matches_per_frame_renders():
 
 
 def test_render_batch_sampling_filter_matches():
-    """Batched jobs through a Pallas-eligible sampling filter (base-block
-    layout path) with per-job inputs and list-of-frames input form."""
+    """Batched jobs through a sampling filter (bicubic, wrap edges) with
+    per-job inputs and list-of-frames input form."""
     f = mm.compile_file("filters/Distorts/twirl.mm")
     rng = np.random.RandomState(8)
     frames = [rng.rand(H, W, 4).astype(np.float32) for _ in range(2)]
-    out = f.render_batch(frames, ts=[0.2, 0.6],
-                         options=mm.RenderOptions(sampler="pallas",
-                                                  pallas_precision="f32"))
+    opts = mm.RenderOptions(interpolation="bicubic", edge_x="wrap",
+                            edge_y="wrap")
+    out = f.render_batch(frames, ts=[0.2, 0.6], options=opts)
     for i, t in enumerate((0.2, 0.6)):
-        single = f.render(frames[i], t=t,
-                          options=mm.RenderOptions(sampler="pallas",
-                                                   pallas_precision="f32"))
+        single = f.render(frames[i], t=t, options=opts)
         np.testing.assert_allclose(out[i], single, atol=1e-6)
 
 
@@ -477,29 +475,27 @@ def test_max_loop_iters_cap_exact_parity():
 
 
 def test_pallas_while_safe_calls_mosaic_probed():
-    """Round-3 TPU probe: Mosaic's TC lowering rejects
-    asin/acos/atan/atan2/sinh/cosh/asinh/acosh/atanh — SAFE_CALLS used to
-    admit them, which would crash eligible loops at lowering on real TPU
-    (invisible to interpret-mode tests). Pin the exclusions and the newly
-    admitted fixed-depth specials."""
+    """SAFE_CALLS as the Triton route lowers it (tests/test_while_kernel.py
+    cross-lowers every name): the inverse trig/hyperbolic family that the
+    kernel's earlier route rejected is in; round (no Pallas GPU lowering),
+    table-based noise and the specials nobody measured in the kernel are
+    out."""
     from mathmap_tpu.pallas_kernels.while_kernel import SAFE_CALLS
 
-    for bad in ("asin", "acos", "atan", "atan2", "sinh", "cosh", "asinh",
-                "acosh", "atanh", "toRA", "arg", "gamma", "jac_sn",
-                # lower fine but measured 3x SLOWER in-engine than the
-                # XLA loop (compute-bound bodies) — deliberately excluded
-                "ellK", "ellE", "lgamma", "beta"):
+    for bad in ("round", "noise", "gamma", "jac_sn", "ellK", "ellE",
+                "lgamma", "beta", "origVal", "gaussian_blur", "solve"):
         assert bad not in SAFE_CALLS, bad
-    for good in ("tanh", "tan", "exp2", "log10"):
+    for good in ("tanh", "tan", "exp2", "log10", "asin", "acos", "atan",
+                 "atan2", "sinh", "cosh", "asinh", "acosh", "atanh", "toRA",
+                 "arg"):
         assert good in SAFE_CALLS, good
 
 
-def test_pallas_while_engine_excludes_atan2_body():
-    """An atan2 body is NOT engine-eligible (Mosaic cannot lower it — it
-    would crash on real TPU) and still renders correctly via the XLA
-    path; a mul/add body IS eligible."""
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
-
+def test_pallas_while_engine_excludes_atan2_body(while_kernel_interpret):
+    """An atan2 body IS kernel-eligible on the Triton route; a body calling
+    round() is NOT (no Pallas GPU lowering) and renders via the XLA loop.
+    Both match the lax loop."""
+    WK = while_kernel_interpret
     launches = []
     orig = WK.launch
 
@@ -510,21 +506,21 @@ def test_pallas_while_engine_excludes_atan2_body():
     # `x * 0` keeps the condition DYNAMIC (x carries no trace-time const)
     # so the static unroll doesn't swallow the loop before the engine
     src_ok = ("i = 0; acc = 0;"
-              "while i + x * 0 < 4 do acc = acc + 0.1 * i * (x / W); i = i + 1 end;"
+              "while i + x * 0 < 4 do acc = acc + atan2(y, x + 10 + i); i = i + 1 end;"
               "grayColor(acc / 8)")
     src_bad = ("i = 0; acc = 0;"
-               "while i + x * 0 < 4 do acc = acc + atan2(y, x + 10 + i); i = i + 1 end;"
+               "while i + x * 0 < 4 do acc = acc + round(x / 7 + i); i = i + 1 end;"
                "grayColor(acc / 8)")
-    opts = mm.RenderOptions(sampler="pallas", pallas_while="on")
+    opts = mm.RenderOptions(pallas_while="on")
     WK.launch = counting
     try:
         f = mm.compile(src_ok)
         a = f.render(BLANK, width=256, height=8, options=opts)
-        assert launches, "mul/add body should engage the while engine"
+        assert launches, "atan2 body should engage the loop kernel"
         launches.clear()
         f2 = mm.compile(src_bad)
         b = f2.render(BLANK, width=256, height=8, options=opts)
-        assert not launches, "atan2 body must NOT engage the engine"
+        assert not launches, "round body must NOT engage the kernel"
     finally:
         WK.launch = orig
     a_off = f.render(BLANK, width=256, height=8,
@@ -535,9 +531,9 @@ def test_pallas_while_engine_excludes_atan2_body():
     np.testing.assert_allclose(b, b_off, atol=1e-6)
 
 
-def test_pallas_while_engine_matches_oracle():
-    """The in-VMEM while engine (pallas_kernels/while_kernel, forced via
-    pallas_while='on' + sampler='pallas' on a tile-aligned grid) must match
+def test_pallas_while_engine_matches_oracle(while_kernel_interpret):
+    """The per-pixel loop kernel (pallas_kernels/while_kernel, forced via
+    pallas_while='on', interpret mode on CPU) must match
     the oracle exactly — including the max_iters cap, cond assignments,
     and values computed before the loop (kernel dependencies)."""
     h, w = 16, 256
@@ -550,19 +546,18 @@ def test_pallas_while_engine_matches_oracle():
            "grayColor(clamp(z / 8 + i / 100 + n / 1000, 0, 1))")
     f = mm.compile(src)
     o = f.render(img, width=w, height=h, interpret=True)
-    opts = mm.RenderOptions(sampler="pallas", pallas_while="on")
+    opts = mm.RenderOptions(pallas_while="on")
     j = f.render(img, width=w, height=h, options=opts)
     np.testing.assert_allclose(j, o, atol=1e-5)
     # the cap applies exactly
-    opts2 = mm.RenderOptions(sampler="pallas", pallas_while="on",
-                             max_loop_iters=9)
+    opts2 = mm.RenderOptions(pallas_while="on", max_loop_iters=9)
     o2 = f.render(img, width=w, height=h, interpret=True,
                   options=mm.RenderOptions(max_loop_iters=9))
     j2 = f.render(img, width=w, height=h, options=opts2)
     np.testing.assert_allclose(j2, o2, atol=1e-5)
 
 
-def test_pallas_while_engine_mandelbrot_parity():
+def test_pallas_while_engine_mandelbrot_parity(while_kernel_interpret):
     h, w = 16, 256
     src = ("c = ri:[x / X * 2.4 - 0.5, y / X * 2.4];"
            "z = ri:[0, 0]; iter = 0;"
@@ -574,13 +569,13 @@ def test_pallas_while_engine_mandelbrot_parity():
     img = np.zeros((h, w, 4), np.float32)
     o = f.render(img, width=w, height=h, interpret=True)
     j = f.render(img, width=w, height=h,
-                 options=mm.RenderOptions(sampler="pallas", pallas_while="on"))
+                 options=mm.RenderOptions(pallas_while="on"))
     np.testing.assert_allclose(j, o, atol=1e-6)
 
 
-def test_pallas_while_engine_scalar_param_dep():
+def test_pallas_while_engine_scalar_param_dep(while_kernel_interpret):
     """A traced scalar userval read by the loop (mandelbrot's maxiter)
-    reaches the kernel as an SMEM-style (1,1) input."""
+    reaches the kernel as a (1,1) scalar input."""
     h, w = 16, 256
     src = ("filter f (float lim: 1-64 (20), float stepv: 0.01-1 (0.3))"
            "  z = 0; i = 0;"
@@ -591,14 +586,14 @@ def test_pallas_while_engine_scalar_param_dep():
     params = {"lim": 13.0, "stepv": 0.25}
     o = f.render(img, width=w, height=h, interpret=True, params=params)
     j = f.render(img, width=w, height=h, params=params,
-                 options=mm.RenderOptions(sampler="pallas", pallas_while="on"))
+                 options=mm.RenderOptions(pallas_while="on"))
     np.testing.assert_allclose(j, o, atol=1e-6)
 
 
-def test_pallas_while_engine_rand_and_odd_size():
-    """rand() inside the in-VMEM engine (2-D iota index grid) and a
-    non-tile-aligned grid (masked edge tiles) both match the oracle."""
-    h, w = 13, 100  # not multiples of (8, 256)
+def test_pallas_while_engine_rand_and_odd_size(while_kernel_interpret):
+    """rand() inside the loop kernel (2-D iota index grid) and a
+    non-block-aligned grid (padded edge blocks) both match the oracle."""
+    h, w = 13, 100  # not multiples of the kernel block
     img = np.zeros((h, w, 4), np.float32)
     src = ("s = 0; i = 0;"          # x*0: keep the cond dynamic (engine path)
            "while i + x * 0 < 6 do s = s + rand(0, 1); i = i + 1 end;"
@@ -606,7 +601,7 @@ def test_pallas_while_engine_rand_and_odd_size():
     f = mm.compile(src)
     o = f.render(img, width=w, height=h, interpret=True)
     j = f.render(img, width=w, height=h,
-                 options=mm.RenderOptions(sampler="pallas", pallas_while="on"))
+                 options=mm.RenderOptions(pallas_while="on"))
     np.testing.assert_allclose(j, o, atol=1e-6)
 
 
@@ -775,10 +770,10 @@ def test_static_params_validation():
         mm.RenderOptions(static_params="n")  # must be a tuple
 
 
-def test_pallas_while_on_overrides_static_unroll():
-    """pallas_while='on' is documented as FORCING the in-VMEM engine —
-    it must win over the static unroll even for foldable conditions."""
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
+def test_pallas_while_on_overrides_static_unroll(while_kernel_interpret):
+    """pallas_while='on' is documented as FORCING the loop kernel — it
+    must win over the static unroll even for foldable conditions."""
+    WK = while_kernel_interpret
 
     launches = []
     orig = WK.launch
@@ -789,8 +784,7 @@ def test_pallas_while_on_overrides_static_unroll():
                "i = i + 1 end; grayColor(s + 0.5)")
         f = mm.compile(src)
         j = f.render(img, width=256, height=8,
-                     options=mm.RenderOptions(sampler="pallas",
-                                              pallas_while="on"))
+                     options=mm.RenderOptions(pallas_while="on"))
     finally:
         WK.launch = orig
     assert launches, "engine must be launched when forced"
@@ -977,15 +971,15 @@ def test_opaque_loop_variable_clear_error():
             f.render(BLANK, params={"g": lut}, **kw)
 
 
-def test_wk_engine_rejects_unshadowed_angle_internal():
-    """A WK-eligible body reading the internal `a` (atan2-backed — Mosaic
-    rejects its lowering on real TPU) must stay OFF the engine unless
-    shadowed (review r3 finding; interpret-mode tests can't catch the
-    TPU crash, so eligibility is pinned here)."""
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
+def test_wk_engine_rejects_unshadowed_angle_internal(while_kernel_interpret):
+    """A body reading the internal `a` (atan2-backed) runs IN the loop
+    kernel on the Triton route, shadowed or not, and matches the oracle
+    (the kernel's earlier route could not lower atan2 and had to keep
+    such bodies off it)."""
+    WK = while_kernel_interpret
 
     img = np.random.RandomState(0).rand(8, 256, 4).astype(np.float32)
-    opts = mm.RenderOptions(sampler="pallas", pallas_while="on")
+    opts = mm.RenderOptions(pallas_while="on")
     launches = []
     orig = WK.launch
 
@@ -999,26 +993,27 @@ def test_wk_engine_rejects_unshadowed_angle_internal():
                        "s = s + sin(a + i); i = i + 1 end; "
                        "grayColor(s / 8 + 0.5)")
         j = f.render(img, width=256, height=8, options=opts)
-        assert not launches, "unshadowed `a` must not reach the engine"
+        assert launches == [1], "unshadowed `a` runs in the kernel"
         o = f.render(img, width=256, height=8, interpret=True)
         np.testing.assert_allclose(np.asarray(j), np.asarray(o), atol=1e-5)
-        # shadowed (pre-loop assignment): engine allowed again
+        # shadowed (pre-loop assignment): in the kernel as well
         f2 = mm.compile("s = 0; i = 0; a = 0.3; while i + x * 0 < 4 do "
                         "s = s + sin(a + i); i = i + 1 end; "
                         "grayColor(s / 8 + 0.5)")
-        f2.render(img, width=256, height=8, options=opts)
-        assert launches, "shadowed `a` is engine-safe"
+        j2 = f2.render(img, width=256, height=8, options=opts)
+        assert launches == [1, 1], "shadowed `a` runs in the kernel"
+        o2 = f2.render(img, width=256, height=8, interpret=True)
+        np.testing.assert_allclose(np.asarray(j2), np.asarray(o2), atol=1e-5)
     finally:
         WK.launch = orig
 
 
-def test_wk_engine_not_confused_by_opaque_shadowing_builtin():
-    """A curve param named `sin` shadows the builtin; the engine (which
+def test_wk_engine_not_confused_by_opaque_shadowing_builtin(
+        while_kernel_interpret):
+    """A curve param named `sin` shadows the builtin; the kernel (which
     cannot apply curves) must decline, keeping jit == oracle."""
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
-
     img = np.random.RandomState(0).rand(8, 256, 4).astype(np.float32)
-    opts = mm.RenderOptions(sampler="pallas", pallas_while="on")
+    opts = mm.RenderOptions(pallas_while="on")
     src = ("filter g (curve sin) s = 0; i = 0; "
            "while i + x * 0 < 3 do s = s + sin(0.3); i = i + 1 end; "
            "grayColor(s / 3) end")
@@ -1032,8 +1027,11 @@ def test_wk_engine_not_confused_by_opaque_shadowing_builtin():
     np.testing.assert_allclose(np.asarray(j)[..., 0], 0.9, atol=1e-3)
 
 
-def test_pallas_while_on_forces_engine_regardless_of_sampler():
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
+def test_pallas_while_on_forces_engine_regardless_of_sampler(
+        while_kernel_interpret):
+    """'on' forces the kernel whatever the other options say (here a
+    non-default interpolation and edge mode)."""
+    WK = while_kernel_interpret
 
     img = np.random.RandomState(0).rand(8, 256, 4).astype(np.float32)
     launches = []
@@ -1048,7 +1046,8 @@ def test_pallas_while_on_forces_engine_regardless_of_sampler():
         f = mm.compile("s = 0; i = 0; while i + x * 0 < 4 do s = s + 0.1; "
                        "i = i + 1 end; grayColor(s)")
         j = f.render(img, width=256, height=8,
-                     options=mm.RenderOptions(sampler="gather",
+                     options=mm.RenderOptions(interpolation="nearest",
+                                              edge_x="wrap",
                                               pallas_while="on"))
         assert launches, "'on' must force the engine (docs contract)"
         o = f.render(img, width=256, height=8, interpret=True)

@@ -327,15 +327,16 @@ def test_transcendental_on_image_raises():
             f.render(img, interpret=True)
 
 
-def test_wk_engine_declines_complex_carry():
-    """An engine-eligible loop carrying an ri: value through ^/sin/sqrt
-    must fall back to the XLA loop (their complex overloads reach
-    Mosaic-rejected sinh/cosh/atan2 — TPU-only crash class)."""
+def test_wk_engine_declines_complex_carry(while_kernel_interpret):
+    """An ri: value carried through ^ (its complex overload reaches
+    atan2/exp/log) no longer declines the loop kernel: every one of those
+    lowers on the Triton route, so the loop runs in the kernel and
+    matches the oracle."""
     import mathmap_tpu as mm
-    from mathmap_tpu.pallas_kernels import while_kernel as WK
 
+    WK = while_kernel_interpret
     img = np.random.RandomState(0).rand(8, 256, 4).astype(np.float32)
-    opts = mm.RenderOptions(sampler="pallas", pallas_while="on")
+    opts = mm.RenderOptions(pallas_while="on")
     results = []
     orig = WK.launch
 
@@ -351,7 +352,7 @@ def test_wk_engine_declines_complex_carry():
             "while i + x * 0 < 4 do z = z ^ 2 + ri:[0.1, 0.1]; i = i + 1 end; "
             "grayColor(clamp(z[0], 0, 1))")
         j = f.render(img, width=256, height=8, options=opts)
-        assert results == [False], "ri carry through ^ must decline the engine"
+        assert results == [True], "ri carry through ^ runs in the kernel"
         o = f.render(img, width=256, height=8, interpret=True)
         # 4 iterations of a quadratic map: fused-XLA vs eager-numpy f32
         # rounding reaches ~2e-5

@@ -4,7 +4,7 @@ reference GIMP plugin applying the filter to the drawable's selection bounds
 (`mathmap.c` sel_x1/sel_y1..sel_x2/sel_y2 [unverified — mount empty,
 SURVEY.md §0]). The spec: a region render is BITWISE the full render's crop
 on every single-chip path (the grid values are identical — arange+offset vs
-the sliced full arange — and inputs/prepads stay full-canvas)."""
+the sliced full arange — and inputs stay full-canvas)."""
 
 import numpy as np
 import pytest
@@ -49,12 +49,12 @@ def test_region_oracle_bitwise(img):
     assert np.array_equal(crop(full), reg)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "f32"])
-def test_region_pallas_sampler_bitwise(img, precision):
-    # base-block-layout path: the region is a local tile at a global
-    # origin — the same fields the shard_map tiles use
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+def test_region_pallas_sampler_bitwise(img, interp):
+    # the region is a grid_shape tile at a global origin — the same
+    # fields the shard_map tiles use
     f = mm.compile_source(WARP)
-    opts = dict(sampler="pallas", pallas_precision=precision)
+    opts = dict(interpolation=interp)
     full = f.render(img, options=RenderOptions(**opts))
     reg = f.render(img, options=RenderOptions(region=REG, **opts))
     assert np.array_equal(crop(full), reg)

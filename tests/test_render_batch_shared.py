@@ -1,15 +1,12 @@
 """Shared inputs for render_batch (mm.shared): one image every job
 samples — the param-animation workload (N param/t values over one image).
 
-Shared inputs build the padded sampler image ONCE before the job loop
-(render.run_jobs/_merge_shared), instead of repaying the ~3 ms/4K pad
-build inside every map iteration; output must be BITWISE identical to the
-broadcast-stacked form (the pad content is the same, only hoisted).
+A shared input is uploaded once and re-interleaved with each job's own
+inputs inside the job loop (render.run_jobs/_merge_shared); output must be
+BITWISE identical to the broadcast-stacked form.
 
 Reference analog: the param-animation render loop over one prepared
-drawable in mathmap_common.c [unverified — mount empty, SURVEY.md §0];
-the hoist itself is TPU-native (the reference pays its tile-cache fill
-once per drawable by construction).
+drawable in mathmap_common.c [unverified — mount empty, SURVEY.md §0].
 """
 
 import numpy as np
@@ -28,13 +25,13 @@ _TS = (np.arange(5, dtype=np.float32) + 0.37) / 5
 _PLIST = [{"angle": 3.0 + 0.05 * i} for i in range(5)]
 
 
-@pytest.mark.parametrize("prec", ["bf16", "f32"])
-def test_shared_matches_stacked_bitwise_pallas(prec):
-    """Pallas path (prepads exercised): shared == broadcast-stacked,
-    bitwise, u8 and f32 inputs, per-job params."""
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+def test_shared_matches_stacked_bitwise_pallas(interp):
+    """shared == broadcast-stacked, bitwise, u8 and f32 inputs, per-job
+    params, at two interpolations."""
     f = mm.compile_file("filters/Distorts/twirl.mm")
     img = _u8()
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision=prec)
+    opts = mm.RenderOptions(interpolation=interp)
     for inp in (img, img.astype(np.float32) / np.float32(255.0)):
         stack = np.broadcast_to(inp, (5,) + inp.shape)
         a = f.render_batch(stack.copy(), ts=_TS, params=_PLIST,
@@ -79,7 +76,7 @@ def test_animated_shared_stack_matches_per_frame():
     f = mm.compile_source("filter s (image in) in(xy) end")
     anim = _u8(4, (3, H, W, 4))
     fr = np.float32([0, 1, 2, 1, 0])
-    opts = mm.RenderOptions(sampler="pallas")
+    opts = mm.RenderOptions(interpolation="bicubic")
     b = f.render_batch(mm.shared(anim), ts=np.zeros(5, np.float32),
                        frames=fr, width=W, height=H, options=opts)
     per = np.stack([np.asarray(f.render(anim, frame=float(fr[i]), t=0.0,
@@ -106,19 +103,14 @@ def test_unwrapped_lone_frame_still_raises():
 
 
 def test_shared_prepad_actually_hoists():
-    """The jitted program pads a shared input ONCE: its HLO contains the
-    pad build outside the job loop, and the per-job branch passes prepads
-    into run() (guard against silently regressing to in-loop padding by
-    checking the renderer wires a non-None prepad list)."""
+    """_merge_shared re-interleaves shared and per-job inputs in their
+    original positions (a shuffled order would bind images to the wrong
+    params)."""
     from mathmap_tpu.runtime.render import _merge_shared
 
-    shared = ["IMG"]
-    pads = ["PAD"]
-    ins, out_pads = _merge_shared((True, False), shared, ["JOB"], pads)
-    assert ins == ["IMG", "JOB"]
-    assert out_pads == ["PAD", None]
-    ins, out_pads = _merge_shared((False,), [], ["JOB"], None)
-    assert ins == ["JOB"] and out_pads is None
+    assert _merge_shared((True, False), ["IMG"], ["JOB"]) == ["IMG", "JOB"]
+    assert _merge_shared((False, True), ["IMG"], ["JOB"]) == ["JOB", "IMG"]
+    assert _merge_shared((False,), [], ["JOB"]) == ["JOB"]
 
 
 def test_batch_leading_dim_mismatch_is_readable(input_like=None):
@@ -142,15 +134,14 @@ def test_batch_leading_dim_mismatch_is_readable(input_like=None):
 
 
 def test_uses_sampling_sees_aliased_image():
-    """`q = in; q(xy)` samples through a local alias — uses_sampling must
-    see it so base-block layout stays on (review r5)."""
-    from mathmap_tpu.runtime.render import uses_sampling
-
+    """`q = in; q(xy)` samples through a local alias (review r5): jit and
+    oracle agree, and the batched form equals the lone render."""
     f = mm.compile("filter f (image in) q = in; q(xy) end")
-    assert uses_sampling(f.filters, f.fdef)
-    g = mm.compile("filter g () grayColor(sin(x)) end")
-    assert not uses_sampling(g.filters, g.fdef)
-    # aliased render still correct vs oracle
+    stack = np.random.RandomState(3).rand(2, 16, 16, 4).astype(np.float32)
+    batched = f.render_batch(stack, ts=[0.0, 0.0], frames=[0.0, 0.0])
+    np.testing.assert_array_equal(batched[1],
+                                  f.render(stack[1], width=16, height=16))
+    # aliased render correct vs oracle
     img = np.random.RandomState(2).rand(16, 16, 4).astype(np.float32)
     a = np.asarray(f.render(img, width=16, height=16))
     b = np.asarray(f.render(img, width=16, height=16, interpret=True))

@@ -6,7 +6,8 @@ so the serving path can ship 4× fewer bytes each way.
 
 Reference analog: the 8-bit pack at the end of the render loop in
 mathmap_common.c [unverified — mount empty, SURVEY.md §0]; the device-side
-placement is TPU-native design (host<->device transfer has no C analog).
+placement is this system's own design (host<->device transfer has no C
+analog).
 """
 
 import numpy as np
@@ -90,13 +91,12 @@ def test_u8_in_u8_out_jit_matches_oracle():
     assert diff.max() <= 1
 
 
-def test_u8_output_pallas_matches_gather():
+def test_u8_output_jit_matches_oracle_float_input():
     f = mm.compile_source(_WARP)
     img = _img_f32(7, 64, 96)
-    a = f.render(img, options=mm.RenderOptions(
-        output_dtype="uint8", sampler="pallas", pallas_precision="f32"))
-    b = f.render(img, options=mm.RenderOptions(
-        output_dtype="uint8", sampler="gather"))
+    opts = mm.RenderOptions(output_dtype="uint8")
+    a = f.render(img, options=opts)
+    b = f.render(img, options=opts, interpret=True)
     diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
     assert diff.max() <= 1
 
@@ -186,119 +186,76 @@ def test_to_uint8_passthrough_and_read_animation_u8(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# exact-u8 sampler path (sample_kernel.exact_u8_eligible): u8-sourced
-# images store INTEGER bf16 pads — exact in bf16, so f32-mode split-float
-# drops its third contraction and the pad halves its DMA; the kernel
-# scales output by 1/255. VERDICT r4 item 7.
+# u8 inputs on every sampling route: normalized /255 in-trace, then sampled
+# like float images.
 # ---------------------------------------------------------------------------
 
-def test_exact_u8_eligibility_rules():
-    from mathmap_tpu.pallas_kernels.sample_kernel import (exact_u8_eligible,
-                                                          image_pad_plan)
-    import jax.numpy as jnp
-
-    opts = mm.RenderOptions()
-    assert exact_u8_eligible(opts, True, "wrap", "reflect")
-    assert exact_u8_eligible(opts, True, "clamp", "wrap")
-    assert not exact_u8_eligible(opts, False, "wrap", "wrap")
-    # default edge_color (0,0,0,0) sits on the u8 grid -> eligible
-    assert exact_u8_eligible(opts, True, "color", "color")
-    # off-grid color -> NOT eligible (the apron would quantize)
-    opts_c = mm.RenderOptions(edge_color=(0.1234, 0.0, 0.0, 1.0))
-    assert not exact_u8_eligible(opts_c, True, "color", "wrap")
-    # on-grid non-zero color (128/255) -> eligible
-    opts_g = mm.RenderOptions(edge_color=(128.0 / 255.0, 0.0, 0.0, 1.0))
-    assert exact_u8_eligible(opts_g, True, "color", "color")
-    # OUT-OF-GAMUT on-grid color -> NOT eligible: 511 is on the *255 grid
-    # but not exact in bf16 (8-bit mantissa; 511 would round to 512,
-    # a 1-LSB apron error)
-    opts_o = mm.RenderOptions(edge_color=(511.0 / 255.0, 0.0, 0.0, 1.0))
-    assert not exact_u8_eligible(opts_o, True, "color", "wrap")
-    opts_n = mm.RenderOptions(edge_color=(-1.0 / 255.0, 0.0, 0.0, 1.0))
-    assert not exact_u8_eligible(opts_n, True, "color", "wrap")
-    # pad plan: exact -> bf16 even in f32 precision mode
-    opts_f32 = mm.RenderOptions(pallas_precision="f32")
-    dt, exact = image_pad_plan(opts_f32, True, "wrap", "wrap")
-    assert exact and dt == jnp.bfloat16
-    dt, exact = image_pad_plan(opts_f32, False, "wrap", "wrap")
-    assert not exact and dt == jnp.float32
-
-
 def test_exact_u8_round_recovers_all_values():
-    """round(f32(u/255)*255) == u for every u8 value — the property the
-    exact pad build (_pad_xmajor exact_u8) relies on."""
+    """round(f32(u/255)*255) == u for every u8 value: the in-trace /255
+    loses nothing a u8 output pack could need."""
     u = np.arange(256, dtype=np.uint8)
     v = u.astype(np.float32) / np.float32(255.0)
     np.testing.assert_array_equal(np.round(v * np.float32(255.0)),
                                   u.astype(np.float32))
 
 
-@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("out_dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic"])
-def test_exact_u8_pallas_matches_oracle(prec, interp):
-    """u8 input through the forced-Pallas sampler (exact path) stays
-    inside the precision envelope vs the oracle — every interpolation,
-    wrap/reflect edges."""
+def test_u8_input_matches_oracle(out_dtype, interp):
+    """u8 input through the gather sampler matches the oracle at every
+    interpolation with wrap/reflect edges, float or u8 out."""
     f = mm.compile_source(
         "filter tw (image in) in(xy + [sin(y/3)*4, cos(x/5)*4]) end")
     img = _img_u8(7, 64, 96)
     opts = mm.RenderOptions(interpolation=interp, edge_x="wrap",
-                            edge_y="reflect", sampler="pallas",
-                            pallas_precision=prec, pallas_per_tile="on")
-    out = np.asarray(f.render(img, options=opts))
-    ora = np.asarray(f.render(img, options=opts, interpret=True))
-    lim = 2e-4 if prec == "f32" else 2e-2
-    assert np.abs(out - ora).max() < lim
+                            edge_y="reflect", output_dtype=out_dtype)
+    out = np.asarray(f.render(img, options=opts)).astype(np.float32)
+    ora = np.asarray(f.render(img, options=opts, interpret=True)
+                     ).astype(np.float32)
+    lim = 1.0 if out_dtype == "uint8" else 2e-4  # one 8-bit count
+    assert np.abs(out - ora).max() <= lim
 
 
-def test_exact_u8_color_edge_matches_oracle():
-    """'color' edges with an on-grid edge_color ride the exact path and
-    still match the oracle (the apron scales with the image)."""
+def test_u8_color_edge_matches_oracle():
+    """'color' edges with an on-grid edge_color match the oracle on u8
+    input."""
     f = mm.compile_source("filter z (image in) in(xy*1.4 - [8, 8]) end")
     img = _img_u8(11, 48, 64)
     opts = mm.RenderOptions(edge_x="color", edge_y="color",
-                            edge_color=(0.0, 128.0 / 255.0, 1.0, 1.0),
-                            sampler="pallas", pallas_precision="f32")
+                            edge_color=(0.0, 128.0 / 255.0, 1.0, 1.0))
     out = np.asarray(f.render(img, options=opts))
     ora = np.asarray(f.render(img, options=opts, interpret=True))
     assert np.abs(out - ora).max() < 2e-4
 
 
-def test_exact_u8_offgrid_color_falls_back_and_matches():
-    """An OFF-grid edge_color disables the exact path (plain f32 pad) —
-    output still matches the oracle, apron color unquantized."""
+def test_u8_offgrid_color_edge_matches_oracle():
+    """An OFF-grid edge_color is substituted unquantized on u8 input."""
     f = mm.compile_source("filter z (image in) in(xy*1.4 - [8, 8]) end")
     img = _img_u8(11, 48, 64)
     opts = mm.RenderOptions(edge_x="color", edge_y="color",
-                            edge_color=(0.1234, 0.0, 0.5, 1.0),
-                            sampler="pallas", pallas_precision="f32")
+                            edge_color=(0.1234, 0.0, 0.5, 1.0))
     out = np.asarray(f.render(img, options=opts))
     ora = np.asarray(f.render(img, options=opts, interpret=True))
     assert np.abs(out - ora).max() < 2e-4
 
 
-def test_exact_u8_prepad_accepted_by_kernel():
-    """The renderer's precomputed prepad for a u8 DEVICE input is built
-    with the same exact-u8 plan the kernel expects — a plan mismatch
-    would silently rebuild the pad in-trace (and a WRONG match would
-    mis-scale by 255x, far outside any envelope)."""
+def test_u8_device_input_matches_oracle():
+    """A device-resident u8 input passes the renderer's staging untouched
+    (no host round-trip) and normalizes in-trace like a host u8 array."""
     import jax.numpy as jnp
 
     f = mm.compile_source(
         "filter tw (image in) in(xy + [sin(y/3)*4, cos(x/5)*4]) end")
     img = _img_u8(5, 64, 96)
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
-    dev = jnp.asarray(img)  # device-resident u8 -> prepad cache path
-    out = np.asarray(f.render(dev, options=opts))
-    ora = np.asarray(f.render(img, options=opts, interpret=True))
+    dev = jnp.asarray(img)
+    out = np.asarray(f.render(dev))
+    ora = np.asarray(f.render(img, interpret=True))
     assert np.abs(out - ora).max() < 2e-4
 
 
 def test_exact_u8_image_userval_param():
-    """u8 image PARAMS (uservals) carry u8_src and sample exactly too —
-    including across the jit boundary: the static kinds spec must mark
-    the param 'image:u8' so the in-trace InputImage rebuild re-enables
-    the exact path (the pixels array alone is float either way)."""
+    """u8 image PARAMS (uservals) normalize /255 on conversion and ride
+    the jit boundary as plain 'image' kinds, u8 or float alike."""
     from mathmap_tpu.runtime.render import RenderContext, _userval_pytree
 
     src = ("filter m (image in, image other)\n"
@@ -306,20 +263,20 @@ def test_exact_u8_image_userval_param():
     f = mm.compile_source(src)
     base = _img_u8(2, 48, 64)
     other = _img_u8(9, 48, 64)
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="f32")
 
     import jax.numpy as jnp
 
-    ctx = RenderContext(be=jnp, width=64, height=48, opts=opts,
-                        inputs=[], filters=f.filters, is_jax=True)
+    ctx = RenderContext(be=jnp, width=64, height=48,
+                        opts=mm.RenderOptions(), inputs=[],
+                        filters=f.filters, is_jax=True)
     _, kinds = _userval_pytree(ctx, f.fdef, {"other": other})
-    assert dict(kinds)["other"] == "image:u8"
+    assert dict(kinds)["other"] == "image"
     _, kinds_f = _userval_pytree(
         ctx, f.fdef, {"other": other.astype(np.float32) / 255.0})
     assert dict(kinds_f)["other"] == "image"
 
-    out = np.asarray(f.render(base, params={"other": other}, options=opts))
-    ora = np.asarray(f.render(base, params={"other": other}, options=opts,
+    out = np.asarray(f.render(base, params={"other": other}))
+    ora = np.asarray(f.render(base, params={"other": other},
                               interpret=True))
     assert np.abs(out - ora).max() < 2e-4
 
@@ -356,43 +313,33 @@ def test_sweep_unroll_option():
 
 
 def test_sharded_u8_input_matches_unsharded_bitwise():
-    """u8 INPUTS through render_sharded take the same in-trace /255 +
-    exact-u8 sampler path as unsharded renders — output must match
-    BITWISE (before this, the sharded path pre-converted u8 on the host
-    and lost exact-u8 eligibility, diverging at the pad level)."""
+    """u8 INPUTS through render_sharded take the same in-trace /255 as
+    unsharded renders — output must match BITWISE, float or u8 out
+    (before this, the sharded path pre-converted u8 on the host)."""
     img = _img_u8(21, 32, 48)
     f = mm.compile_source(_WARP)
-    for prec in ("bf16", "f32"):
-        opts = mm.RenderOptions(sampler="pallas", pallas_precision=prec)
+    for out_dtype in ("float32", "uint8"):
+        opts = mm.RenderOptions(output_dtype=out_dtype)
         sh = np.asarray(f.render_sharded(img, options=opts))
         un = np.asarray(f.render(img, options=opts))
         np.testing.assert_array_equal(sh, un)
 
 
 def test_tiled_u8_input_exact_path_engages():
-    """u8 INPUTS through render_tiled ride the exact-u8 sampler on the
-    halo-extended blocks too. Bitwise equality with the plain renderer is
-    NOT the bar here (unlike render_sharded): the tiled path re-bases
-    coordinates per block, which moves f32 weight arithmetic by ~1e-5
-    even for FLOAT inputs (measured: 7.4e-6 float, 7.6e-6 u8 — the u8
-    staging adds nothing). The sharp discriminator for the exact path is
-    the bf16 IDENTITY render: integer bf16 pads reproduce u8 input to
-    ~1e-7, while the non-exact bf16(v/255) pad shows its ~2e-3
-    quantization envelope."""
+    """u8 INPUTS through render_tiled normalize /255 per block. Bitwise
+    equality with the plain renderer is NOT the bar here (unlike
+    render_sharded): the tiled path re-bases coordinates per block, which
+    moves f32 weight arithmetic by ~1e-5. The identity render reproduces
+    the u8 input exactly, and a warp stays within 1e-4 of the plain
+    renderer, wrap or on-grid color edges."""
     img = _img_u8(29, 32, 48)
     ident = mm.compile_source("filter i (image in) in(xy) end")
-    opts = mm.RenderOptions(sampler="pallas", pallas_precision="bf16")
-    ti = np.asarray(ident.render_tiled(img, width=48, height=32,
-                                       options=opts))
+    ti = np.asarray(ident.render_tiled(img, width=48, height=32))
     assert np.abs(ti - img.astype(np.float32) / 255.0).max() < 1e-6
-    # warp parity vs the plain renderer within the path's envelope,
-    # incl. on-u8-grid 'color' edges (painted halos stay eligible)
     f = mm.compile_source(_WARP)
-    for prec, atol in (("bf16", 4e-3), ("f32", 1e-4)):
-        for ex, ey in (("wrap", "wrap"), ("color", "color")):
-            o = mm.RenderOptions(sampler="pallas", pallas_precision=prec,
-                                 edge_x=ex, edge_y=ey,
-                                 edge_color=(0.0, 128 / 255.0, 1.0, 1.0))
-            ti = np.asarray(f.render_tiled(img, options=o))
-            un = np.asarray(f.render(img, options=o))
-            np.testing.assert_allclose(ti, un, atol=atol)
+    for ex, ey in (("wrap", "wrap"), ("color", "color")):
+        o = mm.RenderOptions(edge_x=ex, edge_y=ey,
+                             edge_color=(0.0, 128 / 255.0, 1.0, 1.0))
+        ti = np.asarray(f.render_tiled(img, options=o))
+        un = np.asarray(f.render(img, options=o))
+        np.testing.assert_allclose(ti, un, atol=1e-4)
